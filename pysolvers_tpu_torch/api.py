@@ -1,0 +1,238 @@
+"""Thin OO shell: the reference's user-facing API surface over the solver
+functions.
+
+Port of ``pysolvers_tpu/api.py`` (native-precision, single-device route).
+Parity map (reference → here):
+  CommonSolverArgs (IterativeSolver.py:25-57)      → CommonSolverArgs
+  LinearSolverType.makeSolver (LinearSolver.py:7-15)→ LinearSolverType.make_solver
+  freezeMatrix/unfreezeMatrix (LinearSolver.py:35-42)→ same (snake_case + camelCase aliases)
+  freezePrec/unfreezePrec (IterativeLinearSolver.py:79-86) → same
+  PCG/PCGSolver (PCGSolver.py:25-145)              → PCG / PCGSolver
+  mvmult (IterativeLinearSolver.py:94-106)         → pysolvers_tpu_torch.ops.matvec
+
+Matrices may be passed as HostCSR (packed to the best device format on the
+solver's ``device``), as a DiaMatrix/EllMatrix, as a dense array or tensor,
+or as a (host, device) pair for full control.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP slice):
+``precision="mixed"`` (slice 7), ``mesh=`` (slice 12), multi-RHS solves
+(slice 10), matrix-free operators, GMRES and the direct solver (slice 8).
+Eager PyTorch needs no compiled-graph cache, so the JAX solver's
+identity-keyed jit caches are gone; the preconditioner freeze semantics
+stay.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .core import SolverConfig, SolveStatus, make_status
+from .linear.krylov import cg_solve
+from .linear.preconditioner import (IdentityPreconditionerType,
+                                    Preconditioner, PreconditionerType)
+from .ops import matvec
+from .sparse.device import DiaMatrix, EllMatrix, resolve_device, torch_dtype
+from .sparse.host import HostCSR
+
+
+def CommonSolverArgs(maxiter: int = 100, tau: float = 1e-8,
+                     failOnMaxiter: bool = True, norm: str = "2",
+                     showIters: bool = False, showFinal: bool = False,
+                     interval: int = 1, **kw) -> SolverConfig:
+    """Reference-style constructor for SolverConfig (camelCase kwargs)."""
+    return SolverConfig(maxiter=maxiter, tau=tau,
+                        fail_on_maxiter=failOnMaxiter, norm=norm,
+                        show_iters=showIters, show_final=showFinal,
+                        interval=interval, **kw)
+
+
+def as_device_matrix(A, dtype=None, device=None):
+    """Pick the best device format for a matrix: DIA for banded stencils,
+    ELL otherwise, on ``device`` (None: the default device).  Returns
+    (A_host or None, A_dev)."""
+    if isinstance(A, (EllMatrix, DiaMatrix)):
+        return None, A
+    if isinstance(A, HostCSR):
+        if DiaMatrix.is_profitable(A):
+            return A, DiaMatrix.from_host_csr(A, dtype=dtype, device=device)
+        return A, EllMatrix.from_host_csr(A, dtype=dtype, device=device)
+    if isinstance(A, (np.ndarray, torch.Tensor)):
+        return None, torch.as_tensor(A, dtype=torch_dtype(dtype),
+                                     device=resolve_device(device))
+    if hasattr(A, "__matmul__") and getattr(A, "ndim", None) == 2:
+        raise NotImplementedError("matrix-free operators are not ported yet "
+                                  "(ROADMAP slice 8, linear/operator.py)")
+    raise TypeError(f"cannot convert {type(A)} to a device matrix")
+
+
+# ---------------------------------------------------------------------------
+# Base classes (factory split — reference LinearSolver.py:7-42)
+# ---------------------------------------------------------------------------
+
+class LinearSolverType:
+    def make_solver(self):
+        raise NotImplementedError
+
+    # reference-style alias
+    makeSolver = make_solver
+
+
+class LinearSolver:
+    def __init__(self):
+        self._matrix_frozen = False
+
+    def solve(self, A, b) -> SolveStatus:
+        raise NotImplementedError
+
+    def freeze_matrix(self):
+        self._matrix_frozen = True
+
+    def unfreeze_matrix(self):
+        self._matrix_frozen = False
+
+    def matrix_frozen(self) -> bool:
+        return self._matrix_frozen
+
+    freezeMatrix = freeze_matrix
+    unfreezeMatrix = unfreeze_matrix
+    matrixFrozen = matrix_frozen
+
+
+class IterativeLinearSolverType(LinearSolverType):
+    """``device``: where the solve runs (None: ``torch.get_default_device()``
+    at construction)."""
+
+    def __init__(self, control: Optional[SolverConfig] = None,
+                 precond: Optional[PreconditionerType] = None,
+                 precision: str = "native", mesh=None, device=None):
+        self.control = control or SolverConfig()
+        self.precond = precond or IdentityPreconditionerType()
+        if precision == "mixed":
+            raise NotImplementedError("precision='mixed' is not ported yet "
+                                      "(ROADMAP slice 7)")
+        if precision != "native":
+            raise ValueError(f"precision must be 'native' or 'mixed', "
+                             f"got {precision!r}")
+        self.precision = precision
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported yet "
+                                      "(ROADMAP slice 12)")
+        self.device = resolve_device(device)
+
+
+class IterativeLinearSolver(LinearSolver):
+    """Adds preconditioner freeze/reuse (reference
+    IterativeLinearSolver.py:79-86, consumed at PCGSolver.py:92-94)."""
+
+    def __init__(self, control: SolverConfig,
+                 precond_type: PreconditionerType, device=None):
+        super().__init__()
+        self.control = control
+        self.precond_type = precond_type
+        self.device = resolve_device(device)
+        self._prec_frozen = False
+        self._formed_prec: Optional[Preconditioner] = None
+        self._tolerance_override: Optional[float] = None
+        self._split_cache = None
+
+    def freeze_prec(self):
+        self._prec_frozen = True
+
+    def unfreeze_prec(self):
+        self._prec_frozen = False
+
+    def prec_frozen(self) -> bool:
+        return self._prec_frozen
+
+    freezePrec = freeze_prec
+    unfreezePrec = unfreeze_prec
+    precFrozen = prec_frozen
+
+    def set_tolerance(self, tau: float):
+        """Reference IterativeSolver.setTolerance (IterativeSolver.py:83) —
+        used by Newton's adaptive linear tolerance."""
+        self._tolerance_override = float(tau)
+
+    setTolerance = set_tolerance
+
+    def _effective_tau(self) -> float:
+        return (self._tolerance_override
+                if self._tolerance_override is not None
+                else self.control.tau)
+
+    def _get_precond(self, A_host, A_dev) -> Preconditioner:
+        if self._formed_prec is not None and self._prec_frozen:
+            return self._formed_prec
+        if isinstance(self.precond_type, IdentityPreconditionerType):
+            # identity never depends on A: form once
+            if self._formed_prec is not None:
+                return self._formed_prec
+            prec = self.precond_type.form()
+        else:
+            if A_host is None:
+                raise ValueError(
+                    "preconditioner setup needs a HostCSR matrix; pass the "
+                    "host matrix (or a (host, device) pair) to solve()")
+            prec = self.precond_type.form(A_host, A_dev, device=self.device)
+        self._formed_prec = prec
+        return prec
+
+    def _split_matrix(self, A):
+        if isinstance(A, tuple):
+            return A
+        # freeze_matrix is the user's promise that A won't change: cache
+        # the device pack so repeat solves don't re-pack the operator
+        cached = self._split_cache
+        if cached is not None and cached[0] is A and self.matrix_frozen():
+            return cached[1]
+        host, dev = as_device_matrix(A, device=self.device)
+        self._split_cache = (A, (host, dev))
+        return host, dev
+
+
+# ---------------------------------------------------------------------------
+# PCG
+# ---------------------------------------------------------------------------
+
+class PCG(IterativeLinearSolverType):
+    """Factory for preconditioned CG (reference PCGSolver.py:25-36)."""
+
+    def make_solver(self):
+        return PCGSolver(self.control, self.precond, device=self.device)
+
+    makeSolver = make_solver
+
+
+def _iter_printer(control: SolverConfig, name: str):
+    """Live per-iteration reporter (reference IterativeSolver.py:90-99)."""
+    if not control.show_iters:
+        return None
+    interval = max(control.interval, 1)
+
+    def cb(k, resid):
+        k = int(k)
+        if k % interval == 0:
+            print(f"  {name} iter={k:6d}  ||r||={float(resid):12.5e}")
+
+    return cb
+
+
+class PCGSolver(IterativeLinearSolver):
+    def solve(self, A, b) -> SolveStatus:
+        if np.ndim(b) == 2:
+            raise NotImplementedError("multi-RHS solves are not ported yet "
+                                      "(ROADMAP slice 10)")
+        A_host, A_dev = self._split_matrix(A)
+        b = torch.as_tensor(b, dtype=A_dev.dtype, device=self.device)
+        prec = self._get_precond(A_host, A_dev)
+        control = self.control
+        x, st, hist = cg_solve(
+            lambda v: matvec(A_dev, v), b, maxiter=control.maxiter,
+            tau=self._effective_tau(),
+            precond=None if prec.is_identity else prec.apply_any,
+            norm_fn=control.norm_fn(),
+            iter_callback=_iter_printer(control, "PCG"))
+        return make_status(x, st, control, history=hist,
+                           live_reported=control.show_iters)

@@ -1,0 +1,92 @@
+"""Carry solver state across from the JAX package.
+
+The solver's "weights" are its device operators and the AMG hierarchy.
+These functions take numpy arrays only (``np.asarray`` of the JAX
+package's leaves — this package never imports jax) and build the port's
+objects on ``device`` (None: ``torch.get_default_device()``), so both
+packages can run the same operators.
+
+A JAX ``DiaTiled`` is flattened with ``.to_dia()`` before its diagonals are
+taken; padded diagonals (leading dimension ``ld >= n_rows``) are accepted
+as they are.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .linear.amg import DeviceHierarchy, DeviceLevel
+from .ops.trisolve import TriSolvePlan
+from .sparse.device import DiaMatrix, EllMatrix, resolve_device
+
+
+def dia_from_arrays(diags, offsets, shape, device=None) -> DiaMatrix:
+    """DiaMatrix from a (D, ld) diagonal table and its D offsets."""
+    return DiaMatrix.from_numpy(np.array(diags), offsets, shape,
+                                device=device)
+
+
+def ell_from_arrays(data, cols, shape, n_cols_pad: int,
+                    device=None) -> EllMatrix:
+    """EllMatrix from padded (n_rows_pad, k) value and column tables."""
+    device = resolve_device(device)
+    return EllMatrix(torch.as_tensor(np.array(data), device=device),
+                     torch.as_tensor(np.array(cols, dtype=np.int32),
+                                     device=device),
+                     tuple(int(s) for s in shape), int(n_cols_pad))
+
+
+def trisolve_plan_from_arrays(ell_data, ell_cols, diag, levels, lower: bool,
+                              device=None) -> TriSolvePlan:
+    """TriSolvePlan from the JAX plan's four tables and its orientation."""
+    return TriSolvePlan.from_numpy(np.array(ell_data), np.array(ell_cols),
+                                   np.array(diag), np.array(levels),
+                                   lower, device=device)
+
+
+def _operator(op: Optional[dict], device):
+    """A DIA operator is {"diags", "offsets", "shape"}; an ELL operator
+    {"data", "cols", "shape", "n_cols_pad"}."""
+    if op is None:
+        return None
+    if "diags" in op:
+        return dia_from_arrays(op["diags"], op["offsets"], op["shape"],
+                               device)
+    return ell_from_arrays(op["data"], op["cols"], op["shape"],
+                           op["n_cols_pad"], device)
+
+
+def _plan(plan, device):
+    """None, one plan dict ("gs"), or a (lower, upper) pair ("sgs"); a plan
+    dict holds the keyword arguments of ``trisolve_plan_from_arrays``."""
+    if plan is None:
+        return None
+    if isinstance(plan, dict):
+        return trisolve_plan_from_arrays(device=device, **plan)
+    return tuple(_plan(p, device) for p in plan)
+
+
+def hierarchy_from_arrays(levels: Sequence[dict], A0_inv, smoother: str,
+                          nu_pre: int, nu_post: int,
+                          device=None) -> DeviceHierarchy:
+    """DeviceHierarchy from per-level dicts, coarsest first.
+
+    Each level dict has the keys "A", "P", "R" (operator dicts as in
+    ``_operator``, or None), "dinv" (array or None) and "gs_plan" (as in
+    ``_plan``)."""
+    device = resolve_device(device)
+    out = []
+    for lev in levels:
+        dinv = lev["dinv"]
+        out.append(DeviceLevel(
+            _operator(lev["A"], device),
+            None if dinv is None else torch.as_tensor(np.array(dinv),
+                                                      device=device),
+            _plan(lev["gs_plan"], device),
+            _operator(lev["P"], device),
+            _operator(lev["R"], device)))
+    return DeviceHierarchy(out, torch.as_tensor(np.array(A0_inv),
+                                                device=device),
+                           smoother, int(nu_pre), int(nu_post))

@@ -1,0 +1,53 @@
+"""Finite-difference Laplacian test matrices (host assembly, numpy).
+
+Capability parity with the reference's examples/FDLaplacian1D.py:5-13 and
+examples/FDLaplacian2D.py:5-23: negative Laplacian with homogeneous Dirichlet
+BCs, scaled by 1/h^2, m interior points per dimension.  Assembly here is
+vectorized COO (the reference fills a DOK dict row by row).
+
+Copied from ``pysolvers_tpu/problems/laplacian.py`` (importing that package
+imports jax); the other problem families wait for their slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..sparse.host import HostCSR
+
+
+def fd_laplacian_1d(m: int, dtype=np.float64) -> HostCSR:
+    """Tridiagonal (1/h^2)·tridiag(-1, 2, -1) on m interior points of (0,1)."""
+    h = 1.0 / (m + 1)
+    s = 1.0 / (h * h)
+    i = np.arange(m)
+    rows = np.concatenate([i, i[:-1], i[1:]])
+    cols = np.concatenate([i, i[1:], i[:-1]])
+    vals = np.concatenate([
+        np.full(m, 2.0 * s), np.full(m - 1, -s), np.full(m - 1, -s)
+    ]).astype(dtype)
+    return HostCSR.from_coo(rows, cols, vals, (m, m))
+
+
+def fd_laplacian_2d(m: int, dtype=np.float64) -> HostCSR:
+    """5-point stencil on an m×m interior grid of the unit square.
+
+    Row ordering is lexicographic (i*m + j), matching the reference's
+    examples/FDLaplacian2D.py:10-22.
+    """
+    h = 1.0 / (m + 1)
+    s = 1.0 / (h * h)
+    ii, jj = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+    ii, jj = ii.ravel(), jj.ravel()
+    g = ii * m + jj
+    rows = [g]
+    cols = [g]
+    vals = [np.full(m * m, 4.0 * s)]
+    for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        ni, nj = ii + di, jj + dj
+        ok = (ni >= 0) & (ni < m) & (nj >= 0) & (nj < m)
+        rows.append(g[ok])
+        cols.append((ni * m + nj)[ok])
+        vals.append(np.full(ok.sum(), -s))
+    return HostCSR.from_coo(
+        np.concatenate(rows), np.concatenate(cols),
+        np.concatenate(vals).astype(dtype), (m * m, m * m))

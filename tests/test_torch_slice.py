@@ -1,0 +1,108 @@
+"""The slice as a whole: PCG + SA-AMG through the factory API and the
+``solve()`` front end, port against the JAX package on the same seeded
+problem (f64, tau = 1e-10): same stop reason, iterations within ±1,
+solutions within 1e-6 relative.  The smoother is pinned where the CPU
+default ("gs") differs from the accelerator's ("jacobi")."""
+import numpy as np
+import pytest
+import torch
+
+import pysolvers_tpu as pst
+import pysolvers_tpu_torch as pt
+from pysolvers_tpu_torch.ops import spmv
+
+torch.set_num_threads(1)
+
+
+def _rhs(m, seed):
+    H = pt.problems.fd_laplacian_2d(m)
+    return H.matvec(np.random.default_rng(seed).random(H.shape[0]))
+
+
+def _agree(st, sj):
+    assert st.success and sj.success
+    assert st.reason == sj.reason
+    assert abs(st.iters - sj.iters) <= 1
+    xj = np.asarray(sj.soln)
+    x = st.soln.numpy()
+    assert np.linalg.norm(x - xj) / np.linalg.norm(xj) <= 1e-6
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "gs"])
+def test_pcg_amg_matches_jax(smoother):
+    m = 48
+    b = _rhs(m, 0)
+    args = dict(maxiter=200, tau=1e-10)
+    st = pt.PCG(pt.CommonSolverArgs(**args),
+                precond=pt.AMG(num_iters=2, num_levels=3, smoother=smoother),
+                device="cpu").make_solver().solve(
+                    pt.problems.fd_laplacian_2d(m), b)
+    sj = pst.PCG(pst.CommonSolverArgs(**args),
+                 precond=pst.AMG(num_iters=2, num_levels=3,
+                                 smoother=smoother)
+                 ).make_solver().solve(pst.problems.fd_laplacian_2d(m), b)
+    _agree(st, sj)
+    assert st.soln.device.type == "cpu"
+
+
+def test_solve_front_end_matches_jax():
+    m = 40
+    b = _rhs(m, 1)
+    st = pt.solve(pt.problems.fd_laplacian_2d(m), b, precond="amg",
+                  tau=1e-10, device="cpu")
+    sj = pst.solve(pst.problems.fd_laplacian_2d(m), b, precond="amg",
+                   tau=1e-10)
+    _agree(st, sj)
+
+
+def test_frozen_preconditioner_is_reused():
+    H = pt.problems.fd_laplacian_2d(24)
+    b = _rhs(24, 2)
+    solver = pt.PCG(pt.CommonSolverArgs(tau=1e-10),
+                    precond=pt.AMG(num_iters=1, num_levels=2),
+                    device="cpu").make_solver()
+    solver.freeze_matrix()
+    solver.freeze_prec()
+    st1 = solver.solve(H, b)
+    prec = solver._formed_prec
+    st2 = solver.solve(H, b)
+    assert solver._formed_prec is prec
+    assert st1.iters == st2.iters and st1.success
+    np.testing.assert_array_equal(st1.soln.numpy(), st2.soln.numpy())
+
+
+UNPORTED = {
+    "precision_mixed": lambda H, b: pt.solve(H, b, precision="mixed"),
+    "method_gmres": lambda H, b: pt.solve(H, b, method="gmres"),
+    "method_direct": lambda H, b: pt.solve(H, b, method="direct"),
+    "auto_direct_small": lambda H, b: pt.solve(
+        pt.problems.fd_laplacian_2d(8), np.ones(64)),
+    "precond_ic": lambda H, b: pt.solve(H, b, precond="ic"),
+    "precond_ilut": lambda H, b: pt.solve(H, b, precond="ilut"),
+    "auto_ic_medium": lambda H, b: pt.solve(H, b),
+    "multi_rhs": lambda H, b: pt.solve(H, np.stack([b, b], axis=1),
+                                       precond="amg"),
+    "mesh": lambda H, b: pt.solve(H, b, mesh=object()),
+    "pcg_mixed": lambda H, b: pt.PCG(precision="mixed"),
+    "pcg_mesh": lambda H, b: pt.PCG(mesh=object()),
+    "amg_bws": lambda H, b: pt.AMG(matrix_format="bws"),
+    "amg_galerkin_device": lambda H, b: pt.AMG(galerkin="device"),
+    "amg_chebyshev": lambda H, b: pt.AMG(smoother="chebyshev"),
+    "vcycle_mesh": lambda H, b: pt.AMGVCycle(mesh=object()),
+}
+
+
+@pytest.mark.parametrize("route", sorted(UNPORTED))
+def test_unported_routes_raise(route):
+    H = pt.problems.fd_laplacian_2d(24)
+    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+        UNPORTED[route](H, _rhs(24, 3))
+
+
+def test_cpu_path_launches_no_kernel():
+    """On the CPU the wrapper runs the plain twin, never K1."""
+    before = spmv.dia_spmv_launches
+    st = pt.solve(pt.problems.fd_laplacian_2d(24), _rhs(24, 4),
+                  precond="jacobi", device="cpu")
+    assert st.success
+    assert spmv.dia_spmv_launches == before
