@@ -4,29 +4,42 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It imports nothing of JAX and builds the
-port's CUDA kernel from the checkout's sources.  Phases, one line each (any
-failure raises and the script exits non-zero):
+port's CUDA kernels from the checkout's sources.  Phases, one line each or
+more (any failure raises and the script exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is a failure;
-2. build of kernel K1 (``csrc/dia_spmv.cu``) with nvcc, and its ptxas report;
+2. build of kernels K1 (``csrc/dia_spmv.cu``), K2/K3 (``csrc/bws_spmv.cu``)
+   and K7 (``csrc/lane_gather_probe.cu``), one nvcc each, all at once, and
+   their ptxas reports;
 3. K1 against its plain twin on the card, f32 and f64: bench.py's two
    operators, the main path's fine operator, a rectangular and a 9-offset
    operator; error bound, then CUDA-event times of both;
-4. the main path at real size: PCG + SA-AMG (6 levels) on
+4. the banded main path at real size: PCG + SA-AMG (6 levels) on
    fd_laplacian_2d(1023) in f64 through the factory API, checked on the
    host with scipy;
-5. the ``solve()`` front end on fd_laplacian_2d(150), checked the same way.
+5. the ``solve()`` front end on fd_laplacian_2d(150), checked the same way;
+6. K7, the lane-index probe of ``benchmarks/probe_idx16.py``, bit-exact
+   against numpy;
+7. the unstructured main path: PCG + SA-AMG (4 levels, every level
+   operator and transfer packed as BWS) on the RCM-reordered
+   fem_poisson_2d_unstructured(1025, seed=3) in f64, n = 1,048,576, with
+   the caller's BWS pack as the fine operator; checked on the host;
+8. K3 (as the path takes it) and K2 (forced, ``s_classes=()``) against
+   their twin on every operator of that hierarchy, f32 and f64, plus a
+   graph_laplacian_rgg operator at n = 1e6; CUDA-event times of both.
 
 Then one JSON line on the kernels, and last the device record
 ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -38,8 +51,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # product and the sum separately.  That is a few ulps of the partial sums,
 # which stay within a small factor of max|y| on these operators.
 TOL = {"float32": 1e-6, "float64": 1e-13}
+# K2/K3 against their twin, as max|y_kernel - y_twin| / max|y_twin|.  The
+# kernel sums each lane over the segments (FMA) and then the slots of a
+# row by warp shuffles; the twin multiplies, then sums in torch's
+# reduction order.  Up to ~100 segment terms per lane on the widest
+# restrictor, a few ulps each, relative to max|y|.
+BWS_TOL = {"float32": 1e-5, "float64": 1e-12}
 # host-checked ||b - A x|| / ||b|| after a solve at tau = 1e-10
 RESID_LIMIT = 1e-9
+# ||x - x*|| / ||x*|| on the unstructured problem.  The error is bounded by
+# kappa(A) times the residual; the FEM matrix at n = 1M has a condition
+# number near 1e6 (h^-2, times the coefficient's contrast), so tau =
+# 1e-10 leaves room for errors above the banded path's 1e-6 gate.
+UNSTRUCTURED_ERR_LIMIT = 1e-5
+KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe")
 
 
 def phase(n, msg):
@@ -159,12 +184,12 @@ def check_k1(device):
 
 
 def device_tensors(op):
-    """The tensors of a DiaMatrix or EllMatrix."""
+    """The tensors of a DiaMatrix, EllMatrix or BwsMatrix."""
     import torch
     return [v for v in vars(op).values() if isinstance(v, torch.Tensor)]
 
 
-def check_solution(tag, H, b, x_star, st, device):
+def check_solution(tag, H, b, x_star, st, device, err_limit=1e-6):
     import torch
     x = st.soln
     if not isinstance(x, torch.Tensor) or x.device.type != device:
@@ -175,7 +200,7 @@ def check_solution(tag, H, b, x_star, st, device):
                          "not finite")
     resid = host_residual(H, xh, b)
     err = float(np.linalg.norm(xh - x_star) / np.linalg.norm(x_star))
-    if not st.success or resid > RESID_LIMIT or err > 1e-6:
+    if not st.success or resid > RESID_LIMIT or err > err_limit:
         raise SystemExit(f"{tag}: success={st.success} resid={resid:.3e} "
                          f"err={err:.3e}")
     return resid, err
@@ -194,7 +219,7 @@ def main_path(device, m=1023):
                     precond=pt.AMG(num_iters=2, num_levels=6),
                     device=device).make_solver()
     Timer.reset()
-    spmv.dia_spmv_launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     st = solver.solve(H, b)
     torch.cuda.synchronize()
@@ -244,7 +269,7 @@ def front_end(device, m=150):
     H = pt.problems.fd_laplacian_2d(m)
     x_star = np.random.default_rng(3).random(H.shape[0])
     b = H.matvec(x_star)
-    spmv.dia_spmv_launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     st = pt.solve(H, b, tau=1e-10, device=device)
     torch.cuda.synchronize()
@@ -258,13 +283,269 @@ def front_end(device, m=150):
              f"{launches} host rel resid={resid:.3e} err={err:.3e}")
 
 
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from pysolvers_tpu_torch.ops import bws_spmv, probe, spmv
+    spmv.dia_spmv_launches = 0
+    bws_spmv.bws_spmv_launches = bws_spmv.bws_spmv_classes_launches = 0
+    probe.lane_gather_probe_launches = 0
+
+
+def launches():
+    from pysolvers_tpu_torch.ops import bws_spmv, probe, spmv
+    return dict(K1=spmv.dia_spmv_launches, K2=bws_spmv.bws_spmv_launches,
+                K3=bws_spmv.bws_spmv_classes_launches,
+                K7=probe.lane_gather_probe_launches)
+
+
+def build_kernels():
+    """Phase 2: one nvcc per source, all started together."""
+    from pysolvers_tpu_torch.ops import _cuda_build
+
+    def build(name):
+        t0 = time.perf_counter()
+        so = _cuda_build.build(name)
+        return so, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    wall = time.perf_counter() - t0
+    for name, (so, secs) in built.items():
+        with open(os.path.join(_cuda_build.BUILD_DIR, f"lib{name}.log")) as f:
+            ptxas = " / ".join(ln.strip() for ln in f if "ptxas info" in ln
+                               and ("Used" in ln or "spill" in ln))
+        phase(2, f"built {os.path.relpath(so, ROOT)} in {secs:.2f} s; "
+                 f"{ptxas}")
+    phase(2, f"all {len(KERNELS)} builds in {wall:.2f} s")
+
+
+def probe_k7(device):
+    """Phase 6: the probe's own run (counts read around it), then K7
+    against its twin.  Returns the kernels-record numbers."""
+    import torch
+    from pysolvers_tpu_torch.ops import probe
+    reset_launches()
+    err = probe.probe_main(device)
+    n = launches()["K7"]
+    if err != 0.0 or n != 1:
+        raise SystemExit(f"K7: int16 lane-index gather max err {err}, "
+                         f"{n} launches")
+    rng = np.random.default_rng(1)
+    idx = torch.as_tensor(rng.integers(0, 128, size=(8, 128)),
+                          dtype=torch.int16, device=device)
+    x = torch.as_tensor(rng.random((8, 128)), dtype=torch.float32,
+                        device=device)
+    if not torch.equal(probe.lane_gather_probe(idx, x),
+                       probe.lane_gather_probe_torch(idx, x)):
+        raise SystemExit("K7 disagrees with its twin")
+    ms, plain_ms = time_pair(lambda: probe.lane_gather_probe(idx, x),
+                             lambda: probe.lane_gather_probe_torch(idx, x))
+    phase(6, f"K7 int16 lane indices widened to int32: OK, bit-exact "
+             f"against numpy and the twin (max err {err}); K7 {ms:.4f} ms | "
+             f"twin {plain_ms:.4f} ms | {card_line()}")
+    return dict(launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def unstructured_path(device, m=1025, num_levels=4):
+    """Phase 7: benchmarks/unstructured_amg.py's pipeline (RCM-reordered
+    FEM matrix, x* from default_rng(7), b = A x*) through the factory API
+    with a (host, BwsMatrix) pair, native f64.  Returns the problem, the
+    solver (hierarchy inside) and the launches."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    from pysolvers_tpu_torch.utils.timing import Timer
+    t0 = time.perf_counter()
+    A = pt.problems.fem_poisson_2d_unstructured(m, seed=3)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ap = A.permute_symmetric(BwsMatrix._rcm_perm(A))
+    rcm_s = time.perf_counter() - t0
+    x_star = np.random.default_rng(7).normal(size=Ap.shape[0])
+    b = Ap.matvec(x_star)
+    t0 = time.perf_counter()
+    A_bws = BwsMatrix.from_host_csr(Ap, dtype=np.float64, use_rcm=False,
+                                    device=device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    solver = pt.PCG(pt.CommonSolverArgs(maxiter=500, tau=1e-10),
+                    precond=pt.AMG(num_iters=2, num_levels=num_levels,
+                                   galerkin="host", matrix_format="bws"),
+                    device=device).make_solver()
+    Timer.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = solver.solve((Ap, A_bws), b)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launches()
+    h = solver._formed_prec.state
+    levels = h.levels[1:]
+    fmt = [(tuple(L.A_dev.shape), type(L.A_dev).__name__,
+            type(L.P_dev).__name__, type(L.R_dev).__name__) for L in levels]
+    if levels[-1].A_dev is not A_bws:
+        raise SystemExit("the hierarchy did not reuse the caller's fine pack")
+    tensors = [h.A0_inv, *device_tensors(A_bws)]
+    for L in levels:
+        for op in (L.A_dev, L.P_dev, L.R_dev):
+            if max(op.shape) >= 2000 and not isinstance(op, BwsMatrix):
+                raise SystemExit(f"operator {op.shape} is "
+                                 f"{type(op).__name__}, not BWS")
+            tensors += device_tensors(op)
+        tensors.append(L.dinv)
+    if any(t.device.type != device for t in tensors):
+        raise SystemExit("an operator of the unstructured solve is not on "
+                         "the device")
+    resid, err = check_solution("unstructured path", Ap, b, x_star, st,
+                                device, UNSTRUCTURED_ERR_LIMIT)
+    # the path rule sends the operators with paying segment classes to K3
+    # and the rest (here the coarsest prolongator) to K2
+    if counts["K2"] <= 0 or counts["K3"] <= 0:
+        raise SystemExit(f"the unstructured path did not launch both K2 "
+                         f"and K3: {counts}")
+    solver.freeze_matrix()
+    solver.freeze_prec()
+    t0 = time.perf_counter()
+    st2 = solver.solve((Ap, A_bws), b)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    check_solution("unstructured re-solve", Ap, b, x_star, st2, device,
+                   UNSTRUCTURED_ERR_LIMIT)
+    phase(7, f"PCG+AMG(num_iters=2, num_levels={num_levels}, "
+             f"matrix_format='bws') fem_poisson_2d_unstructured({m}, "
+             f"seed=3) RCM f64 n={Ap.shape[0]} nnz={Ap.nnz}: iters="
+             f"{st.iters} reason={st.reason.name} host rel resid="
+             f"{resid:.3e} err vs x*={err:.3e} (limit "
+             f"{UNSTRUCTURED_ERR_LIMIT:g})")
+    phase(7, f"levels (A shape, A/P/R formats), coarsest "
+             f"{tuple(h.A0_inv.shape)} dense: {fmt}; smoother={h.smoother}")
+    phase(7, f"host: FEM generation {gen_s:.3f} s, RCM+permute "
+             f"{rcm_s:.3f} s, fine pack+upload {pack_s:.3f} s; first solve "
+             f"{first_s:.3f} s = SA hierarchy "
+             f"{Timer.total('amg.host_hierarchy'):.3f} s + device lowering "
+             f"{Timer.total('amg.device_lower'):.3f} s (of it BWS packs "
+             f"{Timer.total('amg.bws_pack'):.3f} s) + PCG; frozen re-solve "
+             f"{solve_s:.3f} s ({st2.iters} iters); launches {counts} | "
+             f"{card_line()}")
+    return Ap, A_bws, solver, counts
+
+
+def bws_operators(Ap, A_bws, solver, num_levels):
+    """(name, HostCSR, f64 pack) of every BWS operator of the unstructured
+    hierarchy, fine first; the host operators are rebuilt (the SA setup
+    is deterministic) to pack them in f32 as well."""
+    from pysolvers_tpu_torch.linear.amg import build_sa_hierarchy
+    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    mlh = build_sa_hierarchy(Ap, num_levels)
+    h = solver._formed_prec.state
+    ops = [("fine A", Ap, A_bws)]
+    for k in range(len(mlh.matrices) - 1, 0, -1):
+        L = h.levels[k]
+        n = mlh.matrices[k].shape[0]
+        if k < len(mlh.matrices) - 1:
+            ops.append((f"A n={n}", mlh.matrices[k], L.A_dev))
+        ops.append((f"P to n={n}", mlh.prolongators[k - 1], L.P_dev))
+        ops.append((f"R from n={n}", mlh.restrictions[k - 1], L.R_dev))
+    for name, H, op in ops:
+        if tuple(op.shape) != tuple(H.shape):
+            raise SystemExit(f"{name}: host {H.shape} against device "
+                             f"{op.shape}")
+    # operators below the packing threshold keep the auto format
+    return [o for o in ops if isinstance(o[2], BwsMatrix)]
+
+
+def check_bws(name, H, A, x, runs):
+    """One K2 or K3 comparison and timing line; returns the numbers."""
+    import torch
+    from pysolvers_tpu_torch.ops import bws_spmv
+    classes = bws_spmv.use_classes(A)
+    y = bws_spmv.bws_spmv(A, x)
+    y_ref = bws_spmv.bws_spmv_torch(A, x)
+    torch.cuda.synchronize()
+    abs_err = float((y - y_ref).abs().max())
+    rel = abs_err / float(y_ref.abs().max())
+    dt = str(A.dtype).split(".")[1]
+    tol = BWS_TOL[dt]
+    ok = bool(torch.isfinite(y).all()) and rel <= tol
+    ms, plain_ms = time_pair(lambda: bws_spmv.bws_spmv(A, x),
+                             lambda: bws_spmv.bws_spmv_torch(A, x), runs=runs)
+    slots = A.classed_slots if classes else A.nnz_slots
+    size = A.data.element_size()
+    nbytes = ((size + 4) * slots + 4 * slots // 128
+              + size * (A.n_cols + A.n_rows))
+    kernel = "K3" if classes else "K2"
+    phase(8, f"{kernel} {name} {dt} shape={A.shape} gr={A.group_rows} "
+             f"gt={A.gt} S={A.n_segments} W={A.win_blocks} classes="
+             f"{[(s, len(i)) for s, i in A.s_classes]} slots={slots} "
+             f"fill={H.nnz / slots:.3f} rel_err={rel:.3e} (tol {tol:g}) "
+             f"{kernel} {ms:.4f} ms {H.nnz / (ms * 1e-3):.4e} nnz/s "
+             f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s | twin {plain_ms:.4f} "
+             f"ms {H.nnz / (plain_ms * 1e-3):.4e} nnz/s")
+    if not ok:
+        raise SystemExit(f"{kernel} disagrees with its twin on {name} {dt}: "
+                         f"rel {rel:.3e} > {tol:g}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+
+
+def check_bws_kernels(ops, device, rgg_n=1_000_000):
+    """Phase 8.  Returns the kernels-record numbers of K2 and K3 at the
+    main path's fine operator in f64."""
+    import torch
+    from pysolvers_tpu_torch.ops import bws_spmv
+    from pysolvers_tpu_torch.problems import graph_laplacian_rgg
+    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    rng = np.random.default_rng(0)
+    rec = {}
+    for i, (name, H, A64) in enumerate(ops):
+        xh = rng.standard_normal(H.shape[1])
+        for dt in (torch.float64, torch.float32):
+            if dt == torch.float64:
+                A = A64
+            else:
+                # the f64 pack's geometry, so both types run one layout
+                A = BwsMatrix.from_host_csr(
+                    H, dtype=np.float32, use_rcm=False,
+                    group_rows=A64.group_rows, gt=A64.gt, device=device)
+            x = torch.as_tensor(xh, dtype=dt, device=device)
+            main = i == 0 and dt == torch.float64
+            runs = 21 if main else 5
+            if bws_spmv.use_classes(A):
+                r = check_bws(name, H, A, x, runs)
+                if main:
+                    rec["K3"] = r
+            r = check_bws(name + " (classes stripped)", H,
+                          dataclasses.replace(A, s_classes=()), x, runs)
+            if main:
+                rec["K2"] = r
+            del A, x
+    if set(rec) != {"K2", "K3"}:
+        raise SystemExit(f"the fine operator did not run both K2 and K3: "
+                         f"{sorted(rec)}")
+    t0 = time.perf_counter()
+    G = graph_laplacian_rgg(rgg_n, seed=1)
+    gen_s = time.perf_counter() - t0
+    try:
+        G64 = BwsMatrix.from_host_csr(G, dtype=np.float64, use_rcm=True,
+                                      device=device)
+    except ValueError as e:
+        phase(8, f"graph_laplacian_rgg({rgg_n}) not checked: its pack "
+                 f"overflows the BWS window ({e})")
+    else:
+        xh = rng.standard_normal(rgg_n)
+        for A in (G64, dataclasses.replace(G64, s_classes=())):
+            check_bws(f"graph_laplacian_rgg({rgg_n}) RCM (generated in "
+                      f"{gen_s:.1f} s)", G, A,
+                      torch.as_tensor(xh, device=device), 5)
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script runs only on the GPU")
     sys.path.insert(0, ROOT)
     import pysolvers_tpu_torch
-    from pysolvers_tpu_torch.ops import _cuda_build
     if not os.path.abspath(pysolvers_tpu_torch.__file__).startswith(
             ROOT + os.sep):
         raise SystemExit("pysolvers_tpu_torch is not this checkout's")
@@ -273,24 +554,35 @@ def main():
     phase(1, f"torch {torch.__version__} CUDA {torch.version.cuda} "
              f"device {torch.cuda.get_device_name(0)} "
              f"count {torch.cuda.device_count()}")
+    build_kernels()
 
-    t0 = time.perf_counter()
-    so = _cuda_build.build("dia_spmv")
-    build_s = time.perf_counter() - t0
-    with open(os.path.join(_cuda_build.BUILD_DIR, "libdia_spmv.log")) as f:
-        ptxas = " / ".join(ln.strip() for ln in f if "ptxas info" in ln
-                           and ("Used" in ln or "spill" in ln))
-    phase(2, f"built {os.path.relpath(so, ROOT)} in {build_s:.2f} s; {ptxas}")
-
-    rec = check_k1("cuda")
-    launches = main_path("cuda")
+    rec_k1 = check_k1("cuda")
+    k1_launches = main_path("cuda")
     front_end("cuda")
+    rec_k7 = probe_k7("cuda")
+    num_levels = 4
+    Ap, A_bws, solver, counts = unstructured_path(
+        "cuda", num_levels=num_levels)
+    rec_bws = check_bws_kernels(bws_operators(Ap, A_bws, solver, num_levels),
+                                "cuda")
 
-    print(json.dumps({"kernels": [dict(
-        name="dia_spmv", route="cuda",
-        source="pysolvers_tpu_torch/csrc/dia_spmv.cu",
-        replaces="pysolvers_tpu/ops/spmv.py:197",
-        launches=launches, **rec)]}), flush=True)
+    src = "pysolvers_tpu_torch/csrc/"
+    print(json.dumps({"kernels": [
+        dict(name="dia_spmv", route="cuda", source=src + "dia_spmv.cu",
+             replaces="pysolvers_tpu/ops/spmv.py:197",
+             launches=k1_launches, **rec_k1),
+        dict(name="bws_spmv", route="cuda", source=src + "bws_spmv.cu",
+             replaces="pysolvers_tpu/ops/bws_spmv.py:212",
+             launches=counts["K2"], **rec_bws["K2"]),
+        dict(name="bws_spmv_classes", route="cuda",
+             source=src + "bws_spmv.cu",
+             replaces="pysolvers_tpu/ops/bws_spmv.py:149",
+             launches=counts["K3"], **rec_bws["K3"]),
+        dict(name="lane_gather_probe", route="cuda",
+             source=src + "lane_gather_probe.cu",
+             replaces="benchmarks/probe_idx16.py:33",
+             launches=rec_k7.pop("launches"), **rec_k7),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,8 +11,14 @@ Parity map (reference → here):
   mvmult (IterativeLinearSolver.py:94-106)         → pysolvers_tpu_torch.ops.matvec
 
 Matrices may be passed as HostCSR (packed to the best device format on the
-solver's ``device``), as a DiaMatrix/EllMatrix, as a dense array or tensor,
-or as a (host, device) pair for full control.
+solver's ``device``), as a DiaMatrix/EllMatrix/BwsMatrix, as a dense array
+or tensor, or as a (host, device) pair for full control.  The unstructured
+(BWS) lane takes a pair: ``PCG(...).make_solver().solve((A_host, A_bws),
+b)``, with ``A_bws = BwsMatrix.from_host_csr(A_host, use_rcm=False,
+device=...)`` packed on the already reordered matrix; an AMG
+preconditioner with ``matrix_format="bws"`` reuses that pack as its fine
+level.  ``solve()`` never picks BWS at native precision, as in the JAX
+package.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP slice):
 ``precision="mixed"`` (slice 7), ``mesh=`` (slice 12), multi-RHS solves
@@ -33,7 +39,9 @@ from .linear.krylov import cg_solve
 from .linear.preconditioner import (IdentityPreconditionerType,
                                     Preconditioner, PreconditionerType)
 from .ops import matvec
-from .sparse.device import DiaMatrix, EllMatrix, resolve_device, torch_dtype
+from .sparse.bws import BwsMatrix
+from .sparse.device import (DiaMatrix, EllMatrix, resolve_device, same_device,
+                            torch_dtype)
 from .sparse.host import HostCSR
 
 
@@ -52,7 +60,7 @@ def as_device_matrix(A, dtype=None, device=None):
     """Pick the best device format for a matrix: DIA for banded stencils,
     ELL otherwise, on ``device`` (None: the default device).  Returns
     (A_host or None, A_dev)."""
-    if isinstance(A, (EllMatrix, DiaMatrix)):
+    if isinstance(A, (EllMatrix, DiaMatrix, BwsMatrix)):
         return None, A
     if isinstance(A, HostCSR):
         if DiaMatrix.is_profitable(A):
@@ -219,12 +227,29 @@ def _iter_printer(control: SolverConfig, name: str):
     return cb
 
 
+def _check_bws_operator(A: BwsMatrix, device):
+    """A BWS operator in a solve applies its pack's ordering, so it must
+    be packed in the caller's ordering (use_rcm=False), on the solver's
+    device."""
+    if not same_device(A.device, device):
+        raise ValueError(f"the BWS operator is on {A.device}, the solver on "
+                         f"{device}")
+    if A.n_rows != A.n_cols or not torch.equal(
+            A.perm, torch.arange(A.n_rows, dtype=A.perm.dtype,
+                                 device=A.device)):
+        raise ValueError("a BWS operator in a solve must be square and "
+                         "packed with use_rcm=False (reorder the host "
+                         "matrix first)")
+
+
 class PCGSolver(IterativeLinearSolver):
     def solve(self, A, b) -> SolveStatus:
         if np.ndim(b) == 2:
             raise NotImplementedError("multi-RHS solves are not ported yet "
                                       "(ROADMAP slice 10)")
         A_host, A_dev = self._split_matrix(A)
+        if isinstance(A_dev, BwsMatrix):
+            _check_bws_operator(A_dev, self.device)
         b = torch.as_tensor(b, dtype=A_dev.dtype, device=self.device)
         prec = self._get_precond(A_host, A_dev)
         control = self.control

@@ -8,7 +8,9 @@ packages can run the same operators.
 
 A JAX ``DiaTiled`` is flattened with ``.to_dia()`` before its diagonals are
 taken; padded diagonals (leading dimension ``ld >= n_rows``) are accepted
-as they are.
+as they are.  A JAX ``BwsMatrix`` carries across through its tables and
+static fields (``bws_from_arrays``); its ``margin_blocks`` (always 0)
+has no counterpart here.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from .linear.amg import DeviceHierarchy, DeviceLevel
 from .ops.trisolve import TriSolvePlan
+from .sparse.bws import BwsMatrix
 from .sparse.device import DiaMatrix, EllMatrix, resolve_device
 
 
@@ -38,6 +41,15 @@ def ell_from_arrays(data, cols, shape, n_cols_pad: int,
                      tuple(int(s) for s in shape), int(n_cols_pad))
 
 
+def bws_from_arrays(delta, data, lidx, perm, iperm, base, shape,
+                    win_blocks: int, group_rows: int, s_classes, gt: int,
+                    fast_select: bool = False, device=None) -> BwsMatrix:
+    """BwsMatrix from the JAX pack's tables (numpy) and static fields."""
+    return BwsMatrix.from_numpy(delta, data, lidx, perm, iperm, base, shape,
+                                win_blocks, group_rows, s_classes, gt,
+                                fast_select, device=device)
+
+
 def trisolve_plan_from_arrays(ell_data, ell_cols, diag, levels, lower: bool,
                               device=None) -> TriSolvePlan:
     """TriSolvePlan from the JAX plan's four tables and its orientation."""
@@ -48,12 +60,15 @@ def trisolve_plan_from_arrays(ell_data, ell_cols, diag, levels, lower: bool,
 
 def _operator(op: Optional[dict], device):
     """A DIA operator is {"diags", "offsets", "shape"}; an ELL operator
-    {"data", "cols", "shape", "n_cols_pad"}."""
+    {"data", "cols", "shape", "n_cols_pad"}; a BWS operator holds the
+    keyword arguments of ``bws_from_arrays`` (its "lidx" marks it)."""
     if op is None:
         return None
     if "diags" in op:
         return dia_from_arrays(op["diags"], op["offsets"], op["shape"],
                                device)
+    if "lidx" in op:
+        return bws_from_arrays(device=device, **op)
     return ell_from_arrays(op["data"], op["cols"], op["shape"],
                            op["n_cols_pad"], device)
 

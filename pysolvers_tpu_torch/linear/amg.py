@@ -21,11 +21,15 @@ reference AMG stack:
   AMGPreconditioner.py:8-51).
 
 Setup runs on the host; the cycle runs on the hierarchy's device as plain
-torch calls, with every DIA operator applied by kernel K1 on CUDA.  What
-the JAX package chose by ``jax.default_backend()`` is chosen here by the
-hierarchy's ``device.type``: the "auto" smoother is "jacobi" on CUDA and
-"gs" on the CPU; the Galerkin product is always built on the host; the
-coarsest operator is inverted on the host and applied as a dense matmul.
+torch calls, with every DIA operator applied by kernel K1 on CUDA and,
+under ``matrix_format="bws"``, every level operator and transfer of at
+least 2000 rows or columns packed as BWS and applied by kernels K2/K3.
+What the JAX package chose by ``jax.default_backend()`` is chosen here by
+the hierarchy's ``device.type``: the "auto" smoother is "jacobi" on CUDA
+and "gs" on the CPU; the Galerkin product is always built on the host;
+the coarsest operator is inverted on the host and applied as a dense
+matmul.  BWS packs take f32 and f64 alike (the JAX package's f32-only
+rule is a limit of its TPU compiler).
 
 Not ported:
 * the deferred fused build (one upload + one dispatch per setup,
@@ -33,9 +37,8 @@ Not ported:
 * the ``mesh=`` fine-level padding (``_pad_fine_level``) — ROADMAP slice 12;
 * the ``PST_AMG_CLASS_ROWS`` guard — a TPU runtime workaround;
 * the on-device coarse inverse (``ops/dense_inverse.py``);
-* ``matrix_format="bws"`` (slice 6), ``galerkin="device"`` /
-  ``build_sa_hierarchy_device`` and Ruge-Stueben coarsening (slice 11), and
-  the Chebyshev smoother (slice 3).
+* ``galerkin="device"`` / ``build_sa_hierarchy_device`` and Ruge-Stueben
+  coarsening (slice 11), and the Chebyshev smoother (slice 3).
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ import torch
 from ..core import SolverConfig, SolveStatus, StopReason, make_status
 from ..ops import matvec
 from ..ops.trisolve import build_trisolve_plan, trisolve
-from ..sparse.device import numpy_dtype, resolve_device
+from ..sparse.bws import BwsMatrix
+from ..sparse.device import numpy_dtype, resolve_device, same_device
 from ..sparse.host import HostCSR
 from ..utils.timing import Timer
 from .krylov import KrylovState
@@ -267,10 +271,7 @@ def _reject_unported(smoother: str = "auto", matrix_format: str = "auto",
                                   "(ROADMAP slice 3)")
     if smoother not in ("auto",) + _SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}")
-    if matrix_format == "bws":
-        raise NotImplementedError("matrix_format='bws' is not ported yet "
-                                  "(ROADMAP slice 6)")
-    if matrix_format != "auto":
+    if matrix_format not in ("auto", "bws"):
         raise ValueError(f"unknown matrix_format {matrix_format!r}")
     if galerkin == "device":
         raise NotImplementedError("galerkin='device' is not ported yet "
@@ -310,19 +311,49 @@ class DeviceHierarchy:
 def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                            nu_pre: int = 2, nu_post: int = 2,
                            dtype=None, device=None, mesh=None,
-                           matrix_format: str = "auto") -> DeviceHierarchy:
+                           matrix_format: str = "auto",
+                           fine_A_dev=None) -> DeviceHierarchy:
     """Lower the host hierarchy onto ``device`` (None: the default device).
 
     ``smoother``: "auto" (default — "gs" on the CPU for reference parity,
     "jacobi" on CUDA, where the level-scheduled trisolve is a chain of
     small launches per level chunk), "jacobi", "gs" or "sgs".  Level
     operators and transfers go through ``as_device_matrix``: DIA where
-    banded (kernel K1 on CUDA), ELL otherwise."""
+    banded (kernel K1 on CUDA), ELL otherwise.
+
+    ``matrix_format="bws"`` packs every level operator and (rectangular)
+    transfer with max(shape) >= 2000 as BWS (kernels K2/K3 on CUDA), in
+    identity order (``use_rcm=False``): ``group_rows=32`` for square
+    levels, the auto geometry for transfers, ``gt="auto"``.  A matrix too
+    unbanded for a BWS window keeps the auto format, as in the JAX
+    package.
+
+    ``fine_A_dev``: a device operator the caller already holds for the
+    finest level (e.g. the solver's BWS pack), reused instead of packing
+    the largest matrix again.  It must apply the fine host matrix in its
+    own ordering (a BWS pack made with ``use_rcm=False``) and lie on
+    ``device``."""
     _reject_unported(smoother, matrix_format, mesh=mesh)
     device = resolve_device(device)
     if smoother == "auto":
         smoother = "jacobi" if device.type == "cuda" else "gs"
     dtype = numpy_dtype(dtype)
+    if fine_A_dev is not None and not same_device(fine_A_dev.device, device):
+        raise ValueError(f"the fine operator is on {fine_A_dev.device}, the "
+                         f"hierarchy on {device}")
+
+    def device_matrix(M: HostCSR):
+        # below ~2000 rows and columns packing costs more than it saves
+        if matrix_format == "bws" and max(M.shape) >= 2000:
+            try:
+                with Timer("amg.bws_pack"):
+                    return BwsMatrix.from_host_csr(
+                        M, dtype=dtype or M.data.dtype, use_rcm=False,
+                        group_rows=32 if M.shape[0] == M.shape[1] else None,
+                        gt="auto", device=device)
+            except ValueError:
+                pass    # too unbanded for a window — the auto format
+        return as_device_matrix(M, dtype=dtype, device=device)[1]
 
     levels: List[DeviceLevel] = []
     for k, A in enumerate(mlh.matrices):
@@ -334,7 +365,10 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
         level_dtype = dtype or A.data.dtype
         d = A.diagonal()
         d = np.where(d == 0, 1.0, d)
-        A_dev = as_device_matrix(A, dtype=dtype, device=device)[1]
+        if fine_A_dev is not None and k == len(mlh.matrices) - 1:
+            A_dev = fine_A_dev
+        else:
+            A_dev = device_matrix(A)
         gs_plan = None
         if smoother == "gs" and k > 0:
             # reference GS: dx = triu(A)^{-1} r (ClassicSmoothers.py:28-36)
@@ -350,10 +384,8 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                                            dtype=level_dtype, device=device))
         P_dev = R_dev = None
         if k > 0:
-            P_dev = as_device_matrix(mlh.prolongators[k - 1], dtype=dtype,
-                                     device=device)[1]
-            R_dev = as_device_matrix(mlh.restrictions[k - 1], dtype=dtype,
-                                     device=device)[1]
+            P_dev = device_matrix(mlh.prolongators[k - 1])
+            R_dev = device_matrix(mlh.restrictions[k - 1])
         dinv = torch.as_tensor((1.0 / d).astype(level_dtype), device=device)
         levels.append(DeviceLevel(A_dev, dinv, gs_plan, P_dev, R_dev))
     # coarse direct solve: the host inverse, uploaded once and applied as
@@ -455,6 +487,7 @@ class AMGVCycle(IterativeLinearSolverType):
         self.nu_post = nu_post
         self.smoother = smoother
         self.base_tol = base_tol
+        self.matrix_format = matrix_format
 
     def make_solver(self):
         return AMGVCycleSolver(self)
@@ -478,7 +511,8 @@ class AMGVCycleSolver(IterativeLinearSolver):
                                  self.typ.base_tol)
         self._hierarchy = build_device_hierarchy(
             mlh, self.typ.smoother, self.typ.nu_pre, self.typ.nu_post,
-            dtype=dtype, device=self.device)
+            dtype=dtype, device=self.device,
+            matrix_format=self.typ.matrix_format)
 
     def solve(self, A, b) -> SolveStatus:
         # hierarchy setup needs only the HOST matrix — the V-cycle runs on
@@ -518,15 +552,27 @@ class AMGPreconditionerType(PreconditionerType):
         self.smoother = smoother
         self.base_tol = base_tol
         self.side = side
+        # "bws": level operators and transfers packed for kernels K2/K3
+        # (build_device_hierarchy) — the path for large unstructured
+        # hierarchies, where ELL gathers serve every level otherwise
+        self.matrix_format = matrix_format
         self.device = device
 
     def form(self, A_host: HostCSR, A_dev=None, device=None) -> Preconditioner:
         with Timer("amg.host_hierarchy"):
             mlh = build_sa_hierarchy(A_host, self.num_levels, self.base_tol)
+        bws = self.matrix_format == "bws"
+        # reuse the solver's BWS fine pack: made with use_rcm=False on the
+        # matrix the hierarchy is built from, it applies that matrix in
+        # the hierarchy's own ordering
+        reuse = (A_dev if bws and isinstance(A_dev, BwsMatrix)
+                 and tuple(A_dev.shape) == tuple(A_host.shape) else None)
         with Timer("amg.device_lower"):
             h = build_device_hierarchy(
                 mlh, self.smoother, self.nu_pre, self.nu_post,
-                device=self.device if self.device is not None else device)
+                dtype=A_host.data.dtype if bws else None,
+                device=self.device if self.device is not None else device,
+                matrix_format=self.matrix_format, fine_A_dev=reuse)
         num_iters = self.num_iters
 
         def apply(v):

@@ -12,11 +12,13 @@ Port of ``pysolvers_tpu/ops/spmv.py``:
   ``dia_spmv_xla``): K1's reference in the tests and on the card.
 * ``ell_spmv_torch`` — plain gather SpMV for ``EllMatrix`` (the JAX package
   computes it outside any kernel, ``ell_spmv_xla``), on every device.
+* ``matvec`` — dispatch by format; a ``BwsMatrix`` goes to ``bws_spmv``
+  (kernels K2/K3, ``ops/bws_spmv.py``) in the pack's ordering.
 
 Not ported: ``DiaTiled``/``prep_operator`` (K1 reads the (D, ld) table as
 packed, so there is no layout step), the f64 split-gathers (a TPU f64
-workaround), and the BWS, block-DIA and grid kernels with their SpMM forms
-(ROADMAP slices 6, 10 and 11).
+workaround), and the block-DIA and grid kernels with their SpMM forms
+(ROADMAP slices 10 and 11).
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ import ctypes
 
 import torch
 
+from ..sparse.bws import BwsMatrix
 from ..sparse.device import DiaMatrix, EllMatrix
 from . import _cuda_build
+from .bws_spmv import bws_spmv
 
 # Launches of K1 since the last reset: dia_spmv adds one per kernel launch
 # and nowhere else (a run reads it to show that its path went through K1).
@@ -107,9 +111,14 @@ def dia_spmv(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def matvec(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for any device format of the port."""
+    """y = A @ x for any device format of the port.
+
+    A BwsMatrix operates in its packed ordering (the identity when packed
+    with use_rcm=False, as AMG hierarchies are)."""
     if isinstance(A, DiaMatrix):
         return dia_spmv(A, x)
+    if isinstance(A, BwsMatrix):
+        return bws_spmv(A, x)
     if isinstance(A, EllMatrix):
         return ell_spmv_torch(A, x)
     if isinstance(A, torch.Tensor):

@@ -37,6 +37,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.get_default_device() if device is None else torch.device(device)
 
 
+def same_device(a, b) -> bool:
+    """True when ``a`` and ``b`` name one device ("cuda" is the current
+    CUDA device, as tensors created on it report "cuda:<index>")."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda":
+        return ((a.index if a.index is not None else torch.cuda.current_device())
+                == (b.index if b.index is not None
+                    else torch.cuda.current_device()))
+    return a.index == b.index or a.index is None or b.index is None
+
+
 def torch_dtype(dtype):
     """numpy or torch dtype (or None) → torch dtype (or None)."""
     if dtype is None or isinstance(dtype, torch.dtype):

@@ -12,6 +12,7 @@ import torch
 import pysolvers_tpu as pst
 import pysolvers_tpu.linear.amg as jamg
 import pysolvers_tpu.sparse.device as jdev
+from pysolvers_tpu.sparse.bws import BwsMatrix as JaxBws
 import pysolvers_tpu_torch as pt
 import pysolvers_tpu_torch.linear.amg as tamg
 from pysolvers_tpu_torch import convert
@@ -27,6 +28,13 @@ def _op_arrays(op):
     if isinstance(op, jdev.DiaMatrix):
         return dict(diags=np.asarray(op.diags), offsets=op.offsets,
                     shape=op.shape)
+    if isinstance(op, JaxBws):
+        return dict(
+            {f: np.asarray(getattr(op, f)) for f in
+             ("delta", "data", "lidx", "perm", "iperm", "base")},
+            shape=op.shape, win_blocks=op.win_blocks,
+            group_rows=op.group_rows, s_classes=op.s_classes, gt=op.gt,
+            fast_select=op.fast_select)
     return dict(data=np.asarray(op.data), cols=np.asarray(op.cols),
                 shape=op.shape, n_cols_pad=op.n_cols_pad)
 

@@ -1,5 +1,5 @@
-"""Kernel K1 and the port's main path on a CUDA device, against the plain
-twin and the CPU path.  Every test here needs the card and skips without
+"""Kernels K1, K2/K3 and K7 and the port's main paths on a CUDA device,
+against the plain twins and the CPU path.  Every test here needs the card and skips without
 one; this file imports neither jax nor pysolvers_tpu, so it runs on a GPU
 machine without JAX:
 
@@ -8,6 +8,10 @@ machine without JAX:
 Tolerance of K1 against its twin, relative to max|y|: 1e-6 in f32 and
 1e-13 in f64 — K1 contracts each multiply-add into one FMA where the twin
 rounds product and sum separately; both add the D terms in offset order.
+K2/K3 against their twin, relative to max|y|: 1e-5 in f32 and 1e-12 in
+f64 — the kernel sums each lane over the segments and then the slots of a
+row by warp shuffles, the twin in torch's reduction order.  K7 is a pure
+gather and must be bit-exact.
 """
 import numpy as np
 import pytest
@@ -16,7 +20,11 @@ import torch
 import pysolvers_tpu_torch as pt
 import pysolvers_tpu_torch.linear.amg as tamg
 from pysolvers_tpu_torch import convert
-from pysolvers_tpu_torch.ops import spmv
+import dataclasses
+
+from pysolvers_tpu_torch.ops import bws_spmv as tbws
+from pysolvers_tpu_torch.ops import probe, spmv
+from pysolvers_tpu_torch.sparse.bws import BwsMatrix
 from pysolvers_tpu_torch.sparse.device import DiaMatrix
 from pysolvers_tpu_torch.sparse.host import HostCSR
 
@@ -136,3 +144,134 @@ def test_solve_front_end_on_cuda(cuda):
     assert st.success and spmv.dia_spmv_launches > 0
     x = st.soln.cpu().numpy()
     assert np.linalg.norm(b - H.matvec(x)) / np.linalg.norm(b) <= 1e-9
+
+
+BWS_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _rect(n_rows, n_cols, seed, ratio, per_row=3, heavy=0.0,
+          per_heavy=24, spread=300):
+    """Columns near row·ratio, like aggregation-ordered AMG transfers.  The
+    first ``heavy`` share of the rows holds ``per_heavy`` entries within
+    ``spread`` columns: their tiles need many segments (more than the
+    slots of a row in one block, so they spill), the rest few, so the pack
+    has several segment classes."""
+    rng = np.random.default_rng(seed)
+    per = np.where(np.arange(n_rows) < heavy * n_rows, per_heavy, per_row)
+    rows = np.repeat(np.arange(n_rows), per)
+    centers = (np.arange(n_rows) * ratio).astype(np.int64)
+    width = np.repeat(np.where(per > per_row, spread, 3), per)
+    cols = np.clip(np.repeat(centers, per)
+                   + rng.integers(-width, width + 1), 0, n_cols - 1)
+    return HostCSR.from_coo(rows, cols, rng.standard_normal(len(rows)),
+                            (n_rows, n_cols))
+
+
+def _spill():
+    rng = np.random.default_rng(2)
+    D = np.eye(600)
+    D[5, :40] = rng.standard_normal(40) + 2.0
+    D[300, 256:380] = rng.standard_normal(124)
+    return HostCSR.from_dense(D)
+
+
+# name -> (host matrix builder, pack keyword arguments)
+BWS_CASES = {
+    "square_rcm": (lambda: pt.problems.fem_poisson_2d_unstructured(
+        70, seed=3), {}),
+    "tall": (lambda: _rect(5000, 1300, 0, 0.25), dict(use_rcm=False)),
+    "wide": (lambda: _rect(1300, 5000, 1, 4.0, per_row=6),
+             dict(use_rcm=False)),
+    "spill": (_spill, dict(use_rcm=False)),
+    "multi_class": (lambda: pt.problems.fem_poisson_2d_unstructured(
+        100, seed=3), dict(use_rcm=False)),
+    "classes_tall": (lambda: _rect(20000, 5000, 0, 0.25, heavy=0.25),
+                     dict(use_rcm=False)),
+    "classes_wide": (lambda: _rect(5000, 20000, 1, 4.0, heavy=0.25),
+                     dict(use_rcm=False)),
+    "classes_square": (lambda: _rect(20000, 20000, 2, 1.0, heavy=0.25),
+                       dict(use_rcm=False)),
+}
+# the packs whose segment classes pay, so that bws_spmv runs K3 on them
+K3_CASES = ["multi_class", "classes_tall", "classes_wide", "classes_square"]
+
+
+def _bws_pack(case, dtype, device):
+    build, kw = BWS_CASES[case]
+    H = build()
+    return H, BwsMatrix.from_host_csr(H, dtype=dtype, device=device, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(BWS_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_matches_twin(cuda, case, dtype):
+    H, A = _bws_pack(case, dtype, cuda)
+    _check_bws(H, dataclasses.replace(A, s_classes=()), dtype, cuda, "K2")
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_matches_twin(cuda, case, dtype):
+    H, A = _bws_pack(case, dtype, cuda)
+    assert tbws.use_classes(A) and len(A.s_classes) >= 2
+    _check_bws(H, A, dtype, cuda, "K3")
+
+
+def _check_bws(H, A, dtype, cuda, path):
+    x = torch.randn(A.n_cols, dtype=dtype, device=cuda)
+    before = (tbws.bws_spmv_launches, tbws.bws_spmv_classes_launches)
+    y = tbws.bws_spmv(A, x)
+    torch.cuda.synchronize()
+    after = (tbws.bws_spmv_launches, tbws.bws_spmv_classes_launches)
+    if path == "K2":
+        assert after == (before[0] + 1, before[1])
+    else:
+        assert after == (before[0], before[1] + len(A.s_classes))
+    assert y.shape == (A.n_rows,) and y.device == x.device
+    assert _rel(y, tbws.bws_spmv_torch(A, x)) <= BWS_RTOL[dtype]
+    # and against the host product, in the pack's ordering
+    perm = A.perm.cpu().numpy()
+    xh = x.cpu().double().numpy()
+    if A.n_rows == A.n_cols:
+        y_host = H.matvec(xh[np.argsort(perm)])[perm]
+    else:
+        y_host = H.matvec(xh)
+    assert _rel(y.cpu().double(), torch.from_numpy(y_host)) \
+        <= 10 * BWS_RTOL[dtype]
+
+
+def test_k7_probe_is_bit_exact(cuda):
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 128)).astype(np.float32)
+    idx = rng.integers(0, 128, size=(8, 128)).astype(np.int16)
+    before = probe.lane_gather_probe_launches
+    out = probe.lane_gather_probe(torch.from_numpy(idx).to(cuda),
+                                  torch.from_numpy(x).to(cuda))
+    torch.cuda.synchronize()
+    assert probe.lane_gather_probe_launches == before + 1
+    want = np.take_along_axis(x, idx.astype(np.int64), axis=1)
+    assert np.array_equal(out.cpu().numpy(), want)
+
+
+def test_pcg_bws_on_cuda_matches_cpu(cuda):
+    A = pt.problems.fem_poisson_2d_unstructured(70, seed=3)
+    Ap = A.permute_symmetric(BwsMatrix._rcm_perm(A))
+    b = Ap.matvec(np.random.default_rng(7).normal(size=Ap.shape[0]))
+
+    def run(device):
+        A_bws = BwsMatrix.from_host_csr(Ap, dtype=np.float64, use_rcm=False,
+                                        device=device)
+        return pt.PCG(pt.CommonSolverArgs(maxiter=300, tau=1e-10),
+                      precond=pt.AMG(num_iters=2, num_levels=3,
+                                     smoother="jacobi", galerkin="host",
+                                     matrix_format="bws"),
+                      device=device).make_solver().solve((Ap, A_bws), b)
+
+    tbws.bws_spmv_launches = tbws.bws_spmv_classes_launches = 0
+    st = run(cuda)
+    assert tbws.bws_spmv_launches + tbws.bws_spmv_classes_launches > 0
+    ref = run("cpu")
+    assert st.success and st.reason == ref.reason
+    assert abs(st.iters - ref.iters) <= 1
+    x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
+    assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-8

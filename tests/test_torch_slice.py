@@ -85,7 +85,12 @@ UNPORTED = {
     "mesh": lambda H, b: pt.solve(H, b, mesh=object()),
     "pcg_mixed": lambda H, b: pt.PCG(precision="mixed"),
     "pcg_mesh": lambda H, b: pt.PCG(mesh=object()),
-    "amg_bws": lambda H, b: pt.AMG(matrix_format="bws"),
+    "vcycle_bws_mesh": lambda H, b: pt.AMGVCycle(matrix_format="bws",
+                                                 mesh=object()),
+    "pcg_mixed_bws_pair": lambda H, b: pt.PCG(
+        precision="mixed", precond=pt.AMG(matrix_format="bws")
+    ).make_solver().solve((H, pt.BwsMatrix.from_host_csr(
+        H, use_rcm=False, device="cpu")), b),
     "amg_galerkin_device": lambda H, b: pt.AMG(galerkin="device"),
     "amg_chebyshev": lambda H, b: pt.AMG(smoother="chebyshev"),
     "vcycle_mesh": lambda H, b: pt.AMGVCycle(mesh=object()),
