@@ -27,7 +27,18 @@ more (any failure raises and the script exits non-zero):
    the caller's BWS pack as the fine operator; checked on the host;
 8. K3 (as the path takes it) and K2 (forced, ``s_classes=()``) against
    their twin on every operator of that hierarchy, f32 and f64, plus a
-   graph_laplacian_rgg operator at n = 1e6; CUDA-event times of both.
+   graph_laplacian_rgg operator at n = 1e6; CUDA-event times of both;
+9. K4 (``csrc/bdia_spmv.cu``) and K5 (the same source, k = 1, 8, 16 and 20
+   right-hand sides) against their twins, f32 and f64: the block lane's
+   full-width operator, fd_vector_laplacian_2d(648, b=5, coupling=0.2)
+   (``benchmarks/bdia_solve_tpu.py``'s configuration, n = 2,099,520), its
+   D = 1 block-Jacobi inverse and a random nonsymmetric b = 3 operator
+   with odd nb; CUDA-event times of both;
+10. the block lane single-RHS at full width: ``solve(BdiaMatrix, b)`` in
+   f64 with precond "auto" (block-Jacobi) and "bmg", checked on the host;
+11. the block lane multi-RHS: ``solve(BdiaMatrix, B)`` with k = 8
+   (block-Jacobi), checked per column on the host; and the HostCSR
+   auto-route on fd_vector_laplacian_2d(150, b=5, coupling=0.2).
 
 Then one JSON line on the kernels, and last the device record
 ``{"ok": true, "device": {...}}``.
@@ -64,7 +75,15 @@ RESID_LIMIT = 1e-9
 # number near 1e6 (h^-2, times the coefficient's contrast), so tau =
 # 1e-10 leaves room for errors above the banded path's 1e-6 gate.
 UNSTRUCTURED_ERR_LIMIT = 1e-5
-KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe")
+# ||x - x*|| / ||x*|| on the block lane's vector Laplacian at m = 648: its
+# condition number is a few 1e5 (h^-2 times the coupling block's
+# (1 + 4c) / (1 - c)), so tau = 1e-10 leaves room above 1e-6 as well
+BLOCK_ERR_LIMIT = 1e-5
+# the block lane's configuration (benchmarks/bdia_solve_tpu.py:29-31, 52-55)
+BLOCK_M, BLOCK_B, BLOCK_COUPLING, BLOCK_K = 648, 5, 0.2, 8
+# block-Jacobi CG needs ~1,800 iterations there; solve()'s default is 1000
+BLOCK_MAXITER = 6000
+KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv")
 
 
 def phase(n, msg):
@@ -287,6 +306,7 @@ def reset_launches():
     """Every kernel's launch count to 0."""
     from pysolvers_tpu_torch.ops import bws_spmv, probe, spmv
     spmv.dia_spmv_launches = 0
+    spmv.bdia_spmv_launches = spmv.bdia_spmm_launches = 0
     bws_spmv.bws_spmv_launches = bws_spmv.bws_spmv_classes_launches = 0
     probe.lane_gather_probe_launches = 0
 
@@ -295,6 +315,7 @@ def launches():
     from pysolvers_tpu_torch.ops import bws_spmv, probe, spmv
     return dict(K1=spmv.dia_spmv_launches, K2=bws_spmv.bws_spmv_launches,
                 K3=bws_spmv.bws_spmv_classes_launches,
+                K4=spmv.bdia_spmv_launches, K5=spmv.bdia_spmm_launches,
                 K7=probe.lane_gather_probe_launches)
 
 
@@ -540,6 +561,210 @@ def check_bws_kernels(ops, device, rgg_n=1_000_000):
     return rec
 
 
+def block_operator(device):
+    """The block lane's full-width operator: host matrix, f64 pack on the
+    card, and the host seconds of generation and of pack + upload."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    t0 = time.perf_counter()
+    H = pt.fd_vector_laplacian_2d(BLOCK_M, b=BLOCK_B, coupling=BLOCK_COUPLING)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = pt.BdiaMatrix.from_host_csr(H, BLOCK_B, device=device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    return H, A, gen_s, pack_s
+
+
+def check_bdia(name, A, rng, ks, runs):
+    """K4 and K5 (at each k of ``ks``) against their twins on A, with
+    CUDA-event times.  Returns {"K4": numbers, ("K5", k): numbers}."""
+    import torch
+    from pysolvers_tpu_torch.ops import spmv
+    dt = str(A.dtype).split(".")[1]
+    tol = TOL[dt]
+    size = A.planes.element_size()
+    plane_bytes = len(A.offsets) * A.b * A.b * A.nb * size
+    out = {}
+    for k in (None,) + tuple(ks):
+        if k is None:
+            v = torch.as_tensor(rng.standard_normal(A.n_cols), dtype=A.dtype,
+                                device=A.device)
+            kernel = lambda: spmv.bdia_spmv(A, v)            # noqa: E731
+            plain = lambda: spmv.bdia_spmv_torch(A, v)       # noqa: E731
+            tag, nvec = "K4", 1
+        else:
+            v = torch.as_tensor(rng.standard_normal((k, A.n_cols)),
+                                dtype=A.dtype, device=A.device)
+            kernel = lambda: spmv.bdia_spmm_rows(A, v)       # noqa: E731
+            plain = lambda: spmv.bdia_spmm_torch(A, v)       # noqa: E731
+            tag, nvec = f"K5 k={k}", k
+        y, y_ref = kernel(), plain()
+        torch.cuda.synchronize()
+        abs_err = float((y - y_ref).abs().max())
+        rel = abs_err / float(y_ref.abs().max())
+        ok = bool(torch.isfinite(y).all()) and rel <= tol
+        ms, plain_ms = time_pair(kernel, plain, runs=runs)
+        nbytes = plane_bytes + 2 * nvec * A.n_rows * size
+        phase(9, f"{tag} {name} {dt} b={A.b} nb={A.nb} nb_pad={A.nb_pad} "
+                 f"offsets={A.offsets if len(A.offsets) < 8 else len(A.offsets)} "
+                 f"rel_err={rel:.3e} (tol {tol:g}) {tag.split()[0]} {ms:.4f} ms "
+                 f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s | twin "
+                 f"{plain_ms:.4f} ms {nbytes / (plain_ms * 1e-3) / 1e9:.1f} "
+                 f"GB/s")
+        if not ok:
+            raise SystemExit(f"{tag} disagrees with its twin on {name} {dt}: "
+                             f"rel {rel:.3e} > {tol:g}")
+        out["K4" if k is None else ("K5", k)] = dict(
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+        del v, y, y_ref
+    return out
+
+
+def check_bdia_kernels(A64, device):
+    """Phase 9.  Returns the kernels-record numbers of K4 and K5 (k = 8) on
+    the full-width operator in f64."""
+    from pysolvers_tpu_torch import convert
+    from pysolvers_tpu_torch.linear.block_precond import (
+        block_jacobi_bdia_matrix)
+    rng = np.random.default_rng(0)
+    card = card_line()
+    rec = check_bdia("full width", A64, rng, (1, 8, 16, 20), runs=21)
+    check_bdia("full width", A64.astype("float32"), rng, (8,), runs=5)
+    M = block_jacobi_bdia_matrix(A64)
+    for dt in ("float64", "float32"):
+        check_bdia("block-Jacobi inverse (D = 1)", M.astype(dt), rng, (8,),
+                   runs=5)
+    nb, b, offsets = 1001, 3, (-37, -1, 0, 2, 37)
+    planes = rng.standard_normal((len(offsets) * b, b, 1024))
+    R = convert.bdia_from_arrays(planes, offsets, (nb * b, nb * b), b,
+                                 device=device)
+    for dt in ("float64", "float32"):
+        check_bdia("random nonsymmetric", R.astype(dt), rng, (1, 8, 16, 20),
+                   runs=5)
+    phase(9, f"all K4/K5 checks passed | {card}")
+    return dict(K4=rec["K4"], K5=rec[("K5", BLOCK_K)])
+
+
+def block_single(H, A, device, gen_s, pack_s):
+    """Phase 10: solve(BdiaMatrix, b) at full width, precond "auto" and
+    "bmg"; each solved twice (the second hits the preconditioner cache).
+    Returns the K4 launches of the "auto" solve."""
+    import torch
+    import importlib
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.utils.timing import Timer
+    tsolve = importlib.import_module("pysolvers_tpu_torch.solve")
+    x_star = np.random.default_rng(0).random(H.shape[0])
+    b = H.matvec(x_star)
+    phase(10, f"fd_vector_laplacian_2d({BLOCK_M}, b={BLOCK_B}, coupling="
+              f"{BLOCK_COUPLING}) f64 n={H.shape[0]} nnz={H.nnz} planes "
+              f"{tuple(A.planes.shape)} ({A.planes.numel() * 8 / 1e6:.1f} MB)"
+              f": generation {gen_s:.3f} s, pack + upload {pack_s:.3f} s")
+    k4 = None
+    for precond in ("auto", "bmg"):
+        Timer.reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        st = pt.solve(A, b, tau=1e-10, maxiter=BLOCK_MAXITER,
+                      precond=precond)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = launches()
+        resid, err = check_solution(f"block solve ({precond})", H, b, x_star,
+                                    st, device, BLOCK_ERR_LIMIT)
+        if counts["K4"] <= 0:
+            raise SystemExit(f"the block solve ({precond}) launched K4 no "
+                             "time")
+        t0 = time.perf_counter()
+        st2 = pt.solve(A, b, tau=1e-10, maxiter=BLOCK_MAXITER,
+                       precond=precond)
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+        check_solution(f"block re-solve ({precond})", H, b, x_star, st2,
+                       device, BLOCK_ERR_LIMIT)
+        levels = ""
+        if precond == "bmg":
+            h = tsolve._BDIA_SOLVE_CACHE[id(A.planes)][("prec", "bmg")
+                                                       ].state[0]
+            sizes = [int(h.A0_inv.shape[0])] + [L.A_dev.shape[0]
+                                                for L in h.levels[1:]]
+            levels = (f", level sizes per dof {sizes}, of it coarsest "
+                      f"dense inverses "
+                      f"{Timer.total('amg.coarse_inverse'):.3f} s")
+        phase(10, f"solve(BdiaMatrix, b, precond={precond!r}) iters="
+                  f"{st.iters} reason={st.reason.name} host rel resid="
+                  f"{resid:.3e} err vs x*={err:.3e} (limit "
+                  f"{BLOCK_ERR_LIMIT:g}); first solve {first_s:.3f} s (bmg "
+                  f"hierarchies {Timer.total('bdia.bmg_setup'):.3f} s{levels}), "
+                  f"repeat {repeat_s:.3f} s = {1e3 * repeat_s / st2.iters:.3f}"
+                  f" ms/iter ({st2.iters} iters); launches {counts} | "
+                  f"{card_line()}")
+        if precond == "auto":
+            k4 = counts["K4"]
+    return k4
+
+
+def block_multi(H, A, device):
+    """Phase 11: the lockstep k = 8 solve at full width (block-Jacobi
+    through K5), then the HostCSR auto-route at m = 150.  Returns the K5
+    launches of the k = 8 solve."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.utils.timing import Timer
+    X_star = np.random.default_rng(1).random((H.shape[0], BLOCK_K))
+    B = np.stack([H.matvec(X_star[:, j]) for j in range(BLOCK_K)], axis=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    st = pt.solve(A, B, tau=1e-10, maxiter=BLOCK_MAXITER, precond="bjacobi")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    X = st.soln.cpu().numpy()
+    if X.shape != B.shape or not np.isfinite(X).all():
+        raise SystemExit(f"multi-RHS solution has shape {X.shape} or is "
+                         "not finite")
+    resids = [host_residual(H, X[:, j], B[:, j]) for j in range(BLOCK_K)]
+    errs = [float(np.linalg.norm(X[:, j] - X_star[:, j])
+                  / np.linalg.norm(X_star[:, j])) for j in range(BLOCK_K)]
+    if (not st.success or max(resids) > RESID_LIMIT
+            or max(errs) > BLOCK_ERR_LIMIT or counts["K5"] <= 0
+            or counts["K4"] != 0):
+        raise SystemExit(f"multi-RHS block solve: success={st.success} "
+                         f"resids={resids} errs={errs} launches={counts}")
+    phase(11, f"solve(BdiaMatrix, B) k={BLOCK_K} bjacobi f64: iters="
+              f"{st.iters} (max over columns) reason={st.reason.name} wall "
+              f"{wall:.3f} s = {1e3 * wall / st.iters:.3f} ms/iter; host "
+              f"rel resid per column max {max(resids):.3e} "
+              f"{[f'{r:.2e}' for r in resids]}; err vs X* max {max(errs):.3e}; "
+              f"launches {counts} | {card_line()}")
+
+    m = 150
+    Hs = pt.fd_vector_laplacian_2d(m, b=BLOCK_B, coupling=BLOCK_COUPLING)
+    x_star = np.random.default_rng(2).random(Hs.shape[0])
+    b = Hs.matvec(x_star)
+    Timer.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = pt.solve(Hs, b, tau=1e-10, maxiter=BLOCK_MAXITER, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = launches()
+    resid, err = check_solution("auto-route", Hs, b, x_star, st, device,
+                                BLOCK_ERR_LIMIT)
+    scalar = (Timer._counts.get("amg.host_hierarchy", 0)
+              + Timer._counts.get("bdia.bmg_setup", 0))
+    if c["K4"] <= 0 or c["K1"] != 0 or scalar:
+        raise SystemExit(f"the auto-route did not take the block lane: "
+                         f"launches {c}, SA hierarchies built {scalar}")
+    phase(11, f"solve(HostCSR) fd_vector_laplacian_2d({m}, b={BLOCK_B}) "
+              f"n={Hs.shape[0]}: auto-routed to the block lane (no SA "
+              f"hierarchy, no K1) in {wall:.3f} s, iters={st.iters} reason="
+              f"{st.reason.name} host rel resid={resid:.3e} err={err:.3e}; "
+              f"launches {c}")
+    return counts["K5"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -565,6 +790,11 @@ def main():
         "cuda", num_levels=num_levels)
     rec_bws = check_bws_kernels(bws_operators(Ap, A_bws, solver, num_levels),
                                 "cuda")
+    del Ap, A_bws, solver
+    H_blk, A_blk, gen_s, pack_s = block_operator("cuda")
+    rec_bdia = check_bdia_kernels(A_blk, "cuda")
+    k4_launches = block_single(H_blk, A_blk, "cuda", gen_s, pack_s)
+    k5_launches = block_multi(H_blk, A_blk, "cuda")
 
     src = "pysolvers_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
@@ -582,6 +812,12 @@ def main():
              source=src + "lane_gather_probe.cu",
              replaces="benchmarks/probe_idx16.py:33",
              launches=rec_k7.pop("launches"), **rec_k7),
+        dict(name="bdia_spmv", route="cuda", source=src + "bdia_spmv.cu",
+             replaces="pysolvers_tpu/ops/spmv.py:308",
+             launches=k4_launches, **rec_bdia["K4"]),
+        dict(name="bdia_spmm", route="cuda", source=src + "bdia_spmv.cu",
+             replaces="pysolvers_tpu/ops/spmv.py:505",
+             launches=k5_launches, **rec_bdia["K5"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@ A JAX ``DiaTiled`` is flattened with ``.to_dia()`` before its diagonals are
 taken; padded diagonals (leading dimension ``ld >= n_rows``) are accepted
 as they are.  A JAX ``BwsMatrix`` carries across through its tables and
 static fields (``bws_from_arrays``); its ``margin_blocks`` (always 0)
-has no counterpart here.
+has no counterpart here.  A JAX ``BdiaMatrix`` carries across through
+``np.asarray(A.planes)`` and its static fields (``bdia_from_arrays``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from .linear.amg import DeviceHierarchy, DeviceLevel
 from .ops.trisolve import TriSolvePlan
+from .sparse.bdia import BdiaMatrix
 from .sparse.bws import BwsMatrix
 from .sparse.device import DiaMatrix, EllMatrix, resolve_device
 
@@ -48,6 +50,14 @@ def bws_from_arrays(delta, data, lidx, perm, iperm, base, shape,
     return BwsMatrix.from_numpy(delta, data, lidx, perm, iperm, base, shape,
                                 win_blocks, group_rows, s_classes, gt,
                                 fast_select, device=device)
+
+
+def bdia_from_arrays(planes, offsets, shape, b: int,
+                     device=None) -> BdiaMatrix:
+    """BdiaMatrix from a (D·b, b, nb_pad) plane table, its D block offsets,
+    the scalar shape and the block size."""
+    return BdiaMatrix.from_numpy(np.array(planes), offsets, shape, b,
+                                 device=device)
 
 
 def trisolve_plan_from_arrays(ell_data, ell_cols, diag, levels, lower: bool,

@@ -1,10 +1,10 @@
-from .krylov import cg_solve, KrylovState
+from .krylov import cg_solve, cg_solve_multi_rows, KrylovState
 from .preconditioner import (Preconditioner, PreconditionerType,
                              IdentityPreconditionerType,
                              JacobiPreconditionerType)
 
 __all__ = [
-    "cg_solve", "KrylovState",
+    "cg_solve", "cg_solve_multi_rows", "KrylovState",
     "Preconditioner", "PreconditionerType", "IdentityPreconditionerType",
     "JacobiPreconditionerType",
 ]

@@ -391,7 +391,8 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
     # coarse direct solve: the host inverse, uploaded once and applied as
     # a dense matmul
     A0_h = mlh.matrices[0]
-    A0_inv = np.linalg.inv(A0_h.to_dense().astype(np.float64))
+    with Timer("amg.coarse_inverse"):
+        A0_inv = np.linalg.inv(A0_h.to_dense().astype(np.float64))
     A0_inv = torch.as_tensor(A0_inv.astype(dtype or A0_h.data.dtype),
                              device=device)
     return DeviceHierarchy(levels, A0_inv, smoother, nu_pre, nu_post)

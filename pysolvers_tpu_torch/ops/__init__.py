@@ -1,3 +1,7 @@
-from .spmv import matvec, dia_spmv, dia_spmv_torch, ell_spmv_torch
+from .spmv import (matvec, matmat, dia_spmv, dia_spmv_torch, ell_spmv_torch,
+                   bdia_spmv, bdia_spmv_torch, bdia_spmm, bdia_spmm_rows,
+                   bdia_spmm_torch)
 
-__all__ = ["matvec", "dia_spmv", "dia_spmv_torch", "ell_spmv_torch"]
+__all__ = ["matvec", "matmat", "dia_spmv", "dia_spmv_torch", "ell_spmv_torch",
+           "bdia_spmv", "bdia_spmv_torch", "bdia_spmm", "bdia_spmm_rows",
+           "bdia_spmm_torch"]

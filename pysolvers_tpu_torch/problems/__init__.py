@@ -1,5 +1,5 @@
 from .fem import fem_poisson_2d_unstructured, graph_laplacian_rgg
-from .laplacian import fd_laplacian_1d, fd_laplacian_2d
+from .laplacian import fd_laplacian_1d, fd_laplacian_2d, fd_vector_laplacian_2d
 
-__all__ = ["fd_laplacian_1d", "fd_laplacian_2d",
+__all__ = ["fd_laplacian_1d", "fd_laplacian_2d", "fd_vector_laplacian_2d",
            "fem_poisson_2d_unstructured", "graph_laplacian_rgg"]

@@ -6,7 +6,8 @@ BCs, scaled by 1/h^2, m interior points per dimension.  Assembly here is
 vectorized COO (the reference fills a DOK dict row by row).
 
 Copied from ``pysolvers_tpu/problems/laplacian.py`` (importing that package
-imports jax); the other problem families wait for their slices.
+imports jax), with the vector Laplacian of the block-DIA lane; the other
+problem families wait for their slices.
 """
 from __future__ import annotations
 
@@ -51,3 +52,33 @@ def fd_laplacian_2d(m: int, dtype=np.float64) -> HostCSR:
     return HostCSR.from_coo(
         np.concatenate(rows), np.concatenate(cols),
         np.concatenate(vals).astype(dtype), (m * m, m * m))
+
+
+def fd_vector_laplacian_2d(m: int, b: int = 2, coupling: float = 0.3,
+                           dtype=np.float64) -> HostCSR:
+    """Vector (multi-dof-per-node) 2-D Laplacian: b coupled fields on an
+    m×m interior grid — the block-structured FEM-style problem family
+    the reference's scalar suite lacks (block analog of
+    examples/FDLaplacian2D.py:5-23).
+
+    Each grid node carries b unknowns; the scalar 5-point stencil acts
+    per field, and an SPD inter-field coupling block
+    C = I + coupling·(ones − I) multiplies every stencil entry — an
+    elasticity-like pattern giving dense b×b blocks on every stencil
+    offset.  SPD for |coupling| < 1/(b−1) (C stays PD; the Kronecker
+    product of PD matrices is PD).  Row ordering: node-major
+    (node·b + field), the BSR/BDIA-friendly layout.
+    """
+    if not (b >= 1 and abs(coupling) * max(b - 1, 1) < 1.0):
+        raise ValueError("need |coupling|*(b-1) < 1 for an SPD system")
+    A = fd_laplacian_2d(m, dtype=dtype)
+    rows, cols, vals = A.to_coo()
+    C = np.eye(b) + coupling * (np.ones((b, b)) - np.eye(b))
+    p, q = np.meshgrid(np.arange(b), np.arange(b), indexing="ij")
+    p, q = p.ravel(), q.ravel()
+    R = (rows[:, None] * b + p[None, :]).ravel()
+    Cc = (cols[:, None] * b + q[None, :]).ravel()
+    V = (vals[:, None] * C[p, q][None, :]).ravel()
+    n = A.shape[0] * b
+    return HostCSR.from_coo(R, Cc, V.astype(dtype), (n, n),
+                            sum_duplicates=False)

@@ -8,21 +8,39 @@ Picks a method and preconditioner from the matrix's structure:
 * preconditioner "auto": AMG for large SPD systems, IC(t) for medium SPD,
   ILUT for nonsymmetric.
 
-Only the CG route with ``"none"``, ``"amg"`` and ``"jacobi"`` (and
-``"auto"`` where it resolves to AMG) runs in this slice.  The others raise
-``NotImplementedError`` naming their ROADMAP slice: GMRES, the direct
-solve, IC(t)/ILUT (slice 8), ``precision="mixed"`` (slice 7), the
-block-DIA lane and multi-RHS solves (slice 10) and ``mesh=`` (slice 12).
-None of them falls through to another route.
+Two routes run at native precision:
+
+* the scalar CG route on a HostCSR, with ``"none"``, ``"amg"`` and
+  ``"jacobi"`` (and ``"auto"`` where it resolves to AMG);
+* the block-DIA lane: ``solve(BdiaMatrix, b)`` with b of shape (n,) or
+  (n, k), CG with ``"auto"`` (= ``"bjacobi"``), ``"none"``, ``"bcheb"``
+  or ``"bmg"``.  Every operator product is kernel K4 (single RHS) or K5
+  (lockstep multi-RHS, which also applies block-Jacobi through K5).  An
+  all-"auto" CG call on a large HostCSR with b×b block structure
+  (``sparse/bdia.py::detect_block_size``) is packed and rerouted there.
+
+The others raise ``NotImplementedError`` naming their ROADMAP slice:
+GMRES, the direct solve, IC(t)/ILUT (slice 8), ``precision="mixed"``
+(slice 7), multi-RHS on a HostCSR that is not block-structured (slice 10)
+and ``mesh=`` (slice 12).  None of them falls through to another route.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .api import CommonSolverArgs, PCG
-from .core import SolveStatus
+from .core import SolveStatus, make_status
 from .linear.amg import AMGPreconditionerType
+from .linear.block_precond import (BlockChebyshevBdiaPreconditionerType,
+                                   BlockJacobiBdiaPreconditionerType,
+                                   BlockMGBdiaPreconditionerType,
+                                   block_jacobi_bdia_matrix)
+from .linear.krylov import KrylovState, cg_solve, cg_solve_multi_rows
 from .linear.preconditioner import JacobiPreconditionerType
+from .ops.spmv import bdia_spmm_rows, bdia_spmv
+from .sparse.bdia import BdiaMatrix, detect_block_size
+from .sparse.device import same_device
 from .sparse.host import HostCSR
 
 
@@ -35,28 +53,6 @@ def _is_symmetric(A: HostCSR, rtol: float = 1e-10) -> bool:
         return False
     denom = np.abs(A.data).max() if A.nnz else 1.0
     return float(np.abs(A.data - At.data).max()) <= rtol * max(denom, 1e-300)
-
-
-def _detect_block_size(A: HostCSR, candidates=(8, 7, 6, 5, 4, 3, 2),
-                       max_boffs: int = 32, min_density: float = 0.7):
-    """Largest candidate b for which ``A`` has genuine b×b block-DIA
-    structure, or None.  Copied from
-    ``pysolvers_tpu/sparse/bdia.py::detect_block_size``: the JAX front end
-    reroutes such matrices to its block-DIA lane, which the port refuses
-    until that lane is ported (ROADMAP slice 10)."""
-    n, m = A.shape
-    if n != m or A.nnz == 0:
-        return None
-    rows, cols, _ = A.to_coo()
-    for b in candidates:
-        if n % b:
-            continue
-        boffs = np.unique(cols // b - rows // b)
-        if len(boffs) > max_boffs:
-            continue
-        if A.nnz >= min_density * len(boffs) * b * b * (n // b):
-            return b
-    return None
 
 
 _PRECONDS = ("auto", "none", "ic", "ilut", "amg", "jacobi")
@@ -87,49 +83,65 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
           method: str = "auto", precond: str = "auto",
           precision: str = "native", detect_blocks: bool = True,
           device=None, **solver_kwargs) -> SolveStatus:
-    """Solve A x = b on ``device`` (None: ``torch.get_default_device()``).
-    Returns a SolveStatus whose ``soln`` is a tensor on that device.
+    """Solve A x = b on ``device`` (None: ``torch.get_default_device()``;
+    a BdiaMatrix solves on its own device).  Returns a SolveStatus whose
+    ``soln`` is a tensor on that device, in the caller's (node-major)
+    ordering.
 
-    ``A``: a HostCSR or a dense 2-D ndarray; ``b``: (n,).
+    ``A``: a HostCSR, a dense 2-D ndarray or a BdiaMatrix.  ``b``: (n,);
+    (n, k) on the block-DIA lane, which solves the k columns in lockstep
+    (``soln`` is then (n, k), ``iters`` and ``resid`` the largest over the
+    columns, ``reason`` the worst).
     ``method``: "auto" | "cg" | "gmres" | "direct".
-    ``precond``: "auto" | "none" | "ic" | "ilut" | "amg" | "jacobi".
+    ``precond``: "auto" | "none" | "ic" | "ilut" | "amg" | "jacobi"; on a
+    BdiaMatrix "auto" (= "bjacobi") | "none" | "bjacobi" | "bcheb" |
+    "bmg".
     ``precision``: "native" solves in the matrix dtype ("mixed" is not
-    ported yet).  ``detect_blocks``: an all-"auto" CG call on a large
-    block-structured matrix would take the block-DIA lane, which is not
-    ported yet; pass False to force the scalar route.
+    ported yet).  ``detect_blocks``: on an all-"auto" CG call over a large
+    HostCSR (n >= 10,000) with b×b block structure, pack it as a
+    BdiaMatrix on ``device`` and take the block-DIA lane; pass False to
+    force the scalar route.
     """
     if isinstance(A, np.ndarray) and A.ndim == 2:
         A = HostCSR.from_dense(A)
-    if not isinstance(A, HostCSR):
-        raise TypeError("solve() takes a HostCSR or a dense ndarray; use "
-                        "the factory API for device formats")
     if "mesh" in solver_kwargs:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP slice 12)")
     if solver_kwargs:
         raise TypeError(f"unexpected arguments {sorted(solver_kwargs)}")
-    n = A.shape[0]
-    b = np.asarray(b)
-
     if precision == "mixed":
         raise NotImplementedError("precision='mixed' is not ported yet "
                                   "(ROADMAP slice 7)")
     if precision != "native":
         raise ValueError(f"precision must be 'native' or 'mixed', "
                          f"got {precision!r}")
+    if isinstance(A, BdiaMatrix):
+        if device is not None and not same_device(device, A.device):
+            raise ValueError(f"the BdiaMatrix is on {A.device}, not on "
+                             f"{device}")
+        return _solve_bdia(A, b, tau=tau, maxiter=maxiter, method=method,
+                           precond=precond)
+    if not isinstance(A, HostCSR):
+        raise TypeError("solve() takes a HostCSR, a dense ndarray or a "
+                        "BdiaMatrix; use the factory API for other device "
+                        "formats")
+    n = A.shape[0]
+    b = np.asarray(b)
+
     if method == "auto":
         if n <= 500:
             method = "direct"
         else:
             method = "cg" if _is_symmetric(A) else "gmres"
 
-    if (detect_blocks and method == "cg" and precond == "auto"
-            and n >= 10_000 and _detect_block_size(A) is not None):
-        raise NotImplementedError("block-structured matrices take the "
-                                  "block-DIA lane, which is not ported yet "
-                                  "(ROADMAP slice 10); pass "
-                                  "detect_blocks=False for the scalar route")
+    if detect_blocks and method == "cg" and precond == "auto" and n >= 10_000:
+        bsz = detect_block_size(A)
+        if bsz is not None:
+            return _solve_bdia(
+                BdiaMatrix.from_host_csr(A, bsz, device=device), b, tau=tau,
+                maxiter=maxiter, method="cg", precond="auto")
     if b.ndim == 2:
-        raise NotImplementedError("multi-RHS solves are not ported yet "
+        raise NotImplementedError("multi-RHS solves of a HostCSR that is not "
+                                  "block-structured are not ported yet "
                                   "(ROADMAP slice 10)")
     if b.ndim != 1:
         raise ValueError(f"solve() takes b of shape (n,); got {b.shape}")
@@ -144,3 +156,99 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
     control = CommonSolverArgs(maxiter=maxiter, tau=tau)
     return PCG(control, precond=prec_type, device=device
                ).make_solver().solve(A, b)
+
+
+_BDIA_PRECONDS = ("auto", "none", "bjacobi", "bcheb", "bmg", "ic")
+_BDIA_PRECOND_TYPES = {"bjacobi": BlockJacobiBdiaPreconditionerType,
+                       "bcheb": BlockChebyshevBdiaPreconditionerType,
+                       "bmg": BlockMGBdiaPreconditionerType}
+
+# Repeat-solve cache for BdiaMatrix operators: formed preconditioners (and
+# the block-Jacobi inverse as a BdiaMatrix) keyed on the planes tensor's
+# identity.  The entry holds a strong reference, so an id is never reused
+# while it lives, and records the tensor's version counter, so an in-place
+# update of the planes forms anew.  Without it every solve() re-pays the
+# setup — for "bmg" b SA hierarchy builds.
+_BDIA_SOLVE_CACHE: dict = {}
+
+
+def _bdia_cached(A: BdiaMatrix, key, make):
+    """``make()`` for this planes tensor, formed once and kept in its cache
+    entry under ``key``."""
+    ent = _BDIA_SOLVE_CACHE.get(id(A.planes))
+    if (ent is None or ent["planes"] is not A.planes
+            or ent["version"] != A.planes._version):
+        _BDIA_SOLVE_CACHE.pop(id(A.planes), None)
+        if len(_BDIA_SOLVE_CACHE) >= 8:
+            _BDIA_SOLVE_CACHE.pop(next(iter(_BDIA_SOLVE_CACHE)))
+        ent = {"planes": A.planes, "version": A.planes._version}
+        _BDIA_SOLVE_CACHE[id(A.planes)] = ent
+    if key not in ent:
+        ent[key] = make()
+    return ent[key]
+
+
+def _bdia_precond(A: BdiaMatrix, precond: str):
+    """The planar preconditioner apply for a BdiaMatrix (None for
+    "none"); the Preconditioner is formed once per planes tensor and kept
+    in the cache entry under ("prec", name)."""
+    if precond == "auto":
+        precond = "bjacobi"
+    if precond == "none":
+        return None
+    return _bdia_cached(
+        A, ("prec", precond),
+        lambda: _BDIA_PRECOND_TYPES[precond]().form(A_dev=A)).apply_any
+
+
+def _solve_bdia(A: BdiaMatrix, b, *, tau, maxiter, method,
+                precond="auto") -> SolveStatus:
+    """solve() route for a BdiaMatrix: node-major b in, node-major solution
+    out; the CG runs in the format's planar ordering in between, on the
+    matrix's device."""
+    if method in ("auto", "direct"):
+        method = "cg"            # BDIA problems are large by construction
+    if method == "gmres":
+        raise NotImplementedError("method='gmres' is not ported yet "
+                                  "(ROADMAP slice 8)")
+    if method != "cg":
+        raise ValueError(f"unknown method {method!r} for BdiaMatrix")
+    if precond == "ic":
+        raise NotImplementedError("precond='ic' is not ported yet (ROADMAP "
+                                  "slice 8)")
+    if precond not in _BDIA_PRECONDS:
+        raise ValueError(f"unknown BDIA precond {precond!r}; expected one "
+                         f"of {_BDIA_PRECONDS}")
+    control = CommonSolverArgs(maxiter=maxiter, tau=tau)
+    bd = torch.as_tensor(b, dtype=A.dtype, device=A.device)
+    if bd.ndim == 1 and bd.shape[0] == A.n_rows:
+        papply = _bdia_precond(A, precond)
+        x, st, hist = cg_solve(lambda v: bdia_spmv(A, v), A.to_planar(bd),
+                               maxiter=maxiter, tau=tau, precond=papply)
+        return make_status(A.from_planar(x), st, control, history=hist)
+    if bd.ndim != 2 or bd.shape[0] != A.n_rows or bd.shape[1] == 0:
+        raise ValueError(f"solve(BdiaMatrix) takes b of shape ({A.n_rows},) "
+                         f"or ({A.n_rows}, k >= 1); got {tuple(bd.shape)}")
+
+    # lockstep multi-RHS in ROW layout (k, b·nb): one planar RHS per row,
+    # K5 for the operator
+    k = bd.shape[1]
+    B_rows = A.to_planar(bd).T.contiguous()
+    if precond in ("auto", "bjacobi"):
+        # block-Jacobi as a D = 1 BdiaMatrix: applied through K5 too
+        M = _bdia_cached(A, "bjacobi_matrix",
+                         lambda: block_jacobi_bdia_matrix(A))
+        pmulti = lambda V: bdia_spmm_rows(M, V)          # noqa: E731
+    else:
+        papply = _bdia_precond(A, precond)
+        # the single-RHS apply row by row (JAX vmaps it; the kernels'
+        # launches cannot be batched that way)
+        pmulti = (None if papply is None else
+                  lambda V: torch.stack([papply(v) for v in V]))
+    X, st, hist = cg_solve_multi_rows(lambda V: bdia_spmm_rows(A, V), B_rows,
+                                      maxiter=maxiter, tau=tau,
+                                      precond=pmulti)
+    agg = KrylovState(int(st.k.max()), st.resid.max(), int(st.reason.max()))
+    # (k, b·nb) planar rows -> node-major (n, k)
+    Xn = X.reshape(k, A.b, A.nb).permute(2, 1, 0).reshape(A.nb * A.b, k)
+    return make_status(Xn, agg, control, history=hist)

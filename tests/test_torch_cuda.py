@@ -1,4 +1,4 @@
-"""Kernels K1, K2/K3 and K7 and the port's main paths on a CUDA device,
+"""Kernels K1, K2/K3, K4/K5 and K7 and the port's main paths on a CUDA device,
 against the plain twins and the CPU path.  Every test here needs the card and skips without
 one; this file imports neither jax nor pysolvers_tpu, so it runs on a GPU
 machine without JAX:
@@ -10,8 +10,9 @@ Tolerance of K1 against its twin, relative to max|y|: 1e-6 in f32 and
 rounds product and sum separately; both add the D terms in offset order.
 K2/K3 against their twin, relative to max|y|: 1e-5 in f32 and 1e-12 in
 f64 — the kernel sums each lane over the segments and then the slots of a
-row by warp shuffles, the twin in torch's reduction order.  K7 is a pure
-gather and must be bit-exact.
+row by warp shuffles, the twin in torch's reduction order.  K4/K5 against
+their twins: K1's tolerances — both add the (d, q) terms in the same
+order, the kernels with FMAs.  K7 is a pure gather and must be bit-exact.
 """
 import numpy as np
 import pytest
@@ -275,3 +276,93 @@ def test_pcg_bws_on_cuda_matches_cpu(cuda):
     assert abs(st.iters - ref.iters) <= 1
     x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
     assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-8
+
+
+# K4/K5: (nb, b, offsets, nb_pad) of random nonsymmetric planes, nonzero
+# also where i + off falls outside [0, nb), so only the per-dof mask passes
+BDIA_CASES = {
+    "b3_odd_nb": (1001, 3, (-37, -1, 0, 2, 37), 1024),
+    "b5_pad_gt_nb": (4099, 5, (-64, -1, 0, 1, 64), 16384),
+    "b2_reach_past_both_ends": (777, 2, (-900, -776, 0, 776, 900), 777),
+    "b1": (5000, 1, (-3, 0, 7), 5120),
+    "b11_two_groups": (300, 11, (-2, 0, 2), 384),
+}
+
+
+def _bdia(case, dtype, device):
+    nb, b, offsets, nb_pad = BDIA_CASES[case]
+    rng = np.random.default_rng(len(case))
+    planes = rng.standard_normal((len(offsets) * b, b, nb_pad))
+    return convert.bdia_from_arrays(planes, offsets, (nb * b, nb * b), b,
+                                    device=device).astype(dtype)
+
+
+@pytest.mark.parametrize("case", sorted(BDIA_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_matches_twin(cuda, case, dtype):
+    A = _bdia(case, dtype, cuda)
+    x = torch.randn(A.n_cols, dtype=dtype, device=cuda)
+    before = spmv.bdia_spmv_launches
+    y = spmv.bdia_spmv(A, x)
+    torch.cuda.synchronize()
+    assert spmv.bdia_spmv_launches == before + 1
+    assert y.shape == (A.n_rows,) and y.device == x.device
+    assert _rel(y, spmv.bdia_spmv_torch(A, x)) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 20])
+@pytest.mark.parametrize("case", sorted(BDIA_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_matches_twin(cuda, case, dtype, k):
+    A = _bdia(case, dtype, cuda)
+    V = torch.randn(k, A.n_cols, dtype=dtype, device=cuda)
+    before = spmv.bdia_spmm_launches
+    Y = spmv.bdia_spmm_rows(A, V)
+    torch.cuda.synchronize()
+    # more than 16 rows are chunked: 20 rows are two launches
+    assert spmv.bdia_spmm_launches == before + (k + 15) // 16
+    assert Y.shape == (k, A.n_rows)
+    assert _rel(Y, spmv.bdia_spmm_torch(A, V)) <= RTOL[dtype]
+
+
+def test_k4_k5_on_cuda_never_run_the_twins(cuda, monkeypatch):
+    A = _bdia("b3_odd_nb", torch.float64, cuda)
+    ref = spmv.bdia_spmm_torch
+    monkeypatch.setattr(spmv, "bdia_spmm_torch", lambda *a: (
+        _ for _ in ()).throw(AssertionError("twin on CUDA")))
+    monkeypatch.setattr(spmv, "bdia_spmv_torch", lambda *a: (
+        _ for _ in ()).throw(AssertionError("twin on CUDA")))
+    x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+    counts = (spmv.bdia_spmv_launches, spmv.bdia_spmm_launches)
+    y = spmv.bdia_spmv(A, x)
+    Y = spmv.bdia_spmm_rows(A, torch.stack([x, 2 * x]))
+    torch.cuda.synchronize()
+    assert (spmv.bdia_spmv_launches, spmv.bdia_spmm_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert _rel(Y[1], 2 * ref(A, x[None])[0]) <= 1e-13
+    assert _rel(y, Y[0]) <= 1e-13
+    with pytest.raises(ValueError, match="contiguous"):
+        spmv.bdia_spmv(A, torch.randn(2 * A.n_cols, dtype=torch.float64,
+                                      device=cuda)[::2])
+
+
+@pytest.mark.parametrize("precond", ["auto", "bmg"])
+def test_solve_bdia_on_cuda_matches_cpu(cuda, precond):
+    H = pt.problems.fd_vector_laplacian_2d(48, b=5, coupling=0.2)
+    X = np.random.default_rng(5).random((H.shape[0], 3))
+    B = np.stack([H.matvec(X[:, j]) for j in range(3)], axis=1)
+
+    def run(device, b):
+        A = pt.BdiaMatrix.from_host_csr(H, 5, device=device)
+        return pt.solve(A, b, tau=1e-10, maxiter=2000, precond=precond)
+
+    for b in (B[:, 0], B):
+        spmv.bdia_spmv_launches = spmv.bdia_spmm_launches = 0
+        st = run(cuda, b)
+        assert (spmv.bdia_spmv_launches if b.ndim == 1
+                else spmv.bdia_spmm_launches) > 0
+        ref = run("cpu", b)
+        assert st.success and st.reason == ref.reason
+        assert abs(st.iters - ref.iters) <= 1
+        x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
+        assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-8

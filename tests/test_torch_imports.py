@@ -32,5 +32,6 @@ def test_no_jax_import(path):
 def test_scan_sees_the_package():
     assert len(FILES) > 15
     for rel in ("ops/spmv.py", "ops/bws_spmv.py", "ops/probe.py",
-                "sparse/bws.py", "problems/fem.py"):
+                "sparse/bws.py", "problems/fem.py", "sparse/bdia.py",
+                "linear/block_precond.py"):
         assert ROOT / "pysolvers_tpu_torch" / rel in FILES
