@@ -9,9 +9,10 @@ more (any failure raises and the script exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is a failure;
-2. build of kernels K1 (``csrc/dia_spmv.cu``), K2/K3 (``csrc/bws_spmv.cu``)
-   and K7 (``csrc/lane_gather_probe.cu``), one nvcc each, all at once, and
-   their ptxas reports;
+2. build of kernels K1 (``csrc/dia_spmv.cu``), K2/K3 (``csrc/bws_spmv.cu``),
+   K7 (``csrc/lane_gather_probe.cu``), K4/K5 (``csrc/bdia_spmv.cu``) and K6
+   (``csrc/grid_dia_spmv.cu``), one nvcc each, all at once, and their
+   ptxas reports;
 3. K1 against its plain twin on the card, f32 and f64: bench.py's two
    operators, the main path's fine operator, a rectangular and a 9-offset
    operator; error bound, then CUDA-event times of both;
@@ -38,7 +39,24 @@ more (any failure raises and the script exits non-zero):
    f64 with precond "auto" (block-Jacobi) and "bmg", checked on the host;
 11. the block lane multi-RHS: ``solve(BdiaMatrix, B)`` with k = 8
    (block-Jacobi), checked per column on the host; and the HostCSR
-   auto-route on fd_vector_laplacian_2d(150, b=5, coupling=0.2).
+   auto-route on fd_vector_laplacian_2d(150, b=5, coupling=0.2);
+12. K6 (``csrc/grid_dia_spmv.cu``) against its twin, f32 and f64, on the
+   geometric-multigrid path's operators: the full-width fine operator of
+   ``benchmarks/hbm_solve.py`` (the 5-point Laplacian on a 10239 x 10239
+   grid, n = 104,837,121, assembled on the host straight into DIA storage)
+   in grid form, with K1 timed on the same operator in flat DIA form; the
+   probed 9-point m = 5119 level; a random D = 85 table on a 1001 x 777
+   grid, nonzero at the edges; CUDA-event times of both;
+13. the geometric-multigrid path at full width (``hbm_solve.py``'s
+   ``run_solve`` at its default m = 10239, native f64): PCG preconditioned
+   by two V-cycles of the 10-level device-probed grid hierarchy
+   (``build_grid_hierarchy_device``, Jacobi, K6 on m = 10239 and 5119, K1
+   below) to tau = 1e-10, checked on the host by the matrix-free stencil;
+   a repeat solve, and one more under ``torch.profiler``;
+14. the object-oriented GMG entry points at ``run_large.py``'s m = 1023
+   (6 levels, f64, tau = 1e-10, no K6 at this width): PCG with
+   ``GMGPreconditionerType`` (galerkin "host" and "device") and
+   ``GMGVCycle(matrix_format="grid")``, checked on the host with scipy.
 
 Then one JSON line on the kernels, and last the device record
 ``{"ok": true, "device": {...}}``.
@@ -83,7 +101,16 @@ BLOCK_ERR_LIMIT = 1e-5
 BLOCK_M, BLOCK_B, BLOCK_COUPLING, BLOCK_K = 648, 5, 0.2, 8
 # block-Jacobi CG needs ~1,800 iterations there; solve()'s default is 1000
 BLOCK_MAXITER = 6000
-KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv")
+# the geometric-multigrid path (benchmarks/hbm_solve.py:88-169, :218): the
+# grid width and the level count of its loop at :104-107
+GRID_M, GRID_LEVELS = 10239, 10
+# ||x - x*|| / ||x*|| there: kappa ~ 4e7 at m = 10239 times the residual
+# would allow more, but the GMG-preconditioned error is far smaller
+GRID_ERR_LIMIT = 1e-6
+# run_large.py's GMG configuration: m = 1023, _mg_levels(1023) = 6
+OO_GMG_M, OO_GMG_LEVELS = 1023, 6
+KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv",
+           "grid_dia_spmv")
 
 
 def phase(n, msg):
@@ -304,18 +331,20 @@ def front_end(device, m=150):
 
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from pysolvers_tpu_torch.ops import bws_spmv, probe, spmv
+    from pysolvers_tpu_torch.ops import bws_spmv, grid_spmv, probe, spmv
     spmv.dia_spmv_launches = 0
     spmv.bdia_spmv_launches = spmv.bdia_spmm_launches = 0
     bws_spmv.bws_spmv_launches = bws_spmv.bws_spmv_classes_launches = 0
     probe.lane_gather_probe_launches = 0
+    grid_spmv.grid_dia_spmv_launches = 0
 
 
 def launches():
-    from pysolvers_tpu_torch.ops import bws_spmv, probe, spmv
+    from pysolvers_tpu_torch.ops import bws_spmv, grid_spmv, probe, spmv
     return dict(K1=spmv.dia_spmv_launches, K2=bws_spmv.bws_spmv_launches,
                 K3=bws_spmv.bws_spmv_classes_launches,
                 K4=spmv.bdia_spmv_launches, K5=spmv.bdia_spmm_launches,
+                K6=grid_spmv.grid_dia_spmv_launches,
                 K7=probe.lane_gather_probe_launches)
 
 
@@ -765,6 +794,306 @@ def block_multi(H, A, device):
     return counts["K5"]
 
 
+def lap2d_dia(m):
+    """(5, n_pad) f64 DIA table and offsets of the 2-D FD Laplacian on an
+    m x m interior grid, scale (m + 1)^2, assembled straight into diagonal
+    storage as benchmarks/hbm_scale.py:41-59 does (a CSR at n = 1e8 costs
+    ~20 GB of host index arrays)."""
+    n = m * m
+    s = (m + 1.0) ** 2
+    diags = np.zeros((5, -(-n // 32) * 32))
+    diags[2, :n] = 4.0 * s
+    diags[1, :n] = -s              # west (off -1): absent at column 0
+    diags[1, 0:n:m] = 0.0
+    diags[3, :n] = -s              # east (off +1): absent at column m-1
+    diags[3, m - 1:n:m] = 0.0
+    diags[4, :n - m] = -s          # south (off +m)
+    diags[0, m:n] = -s             # north (off -m)
+    return diags, (-m, -1, 0, 1, m)
+
+
+def lap2d_matvec(m, x):
+    """The same operator applied matrix-free in f64 on the host
+    (benchmarks/hbm_solve.py:68-85): the residual oracle, independent of
+    the port."""
+    g = x.reshape(m, m)
+    y = 4.0 * g
+    y[:, 1:] -= g[:, :-1]
+    y[:, :-1] -= g[:, 1:]
+    y[1:, :] -= g[:-1, :]
+    y[:-1, :] -= g[1:, :]
+    y *= (m + 1.0) ** 2
+    return y.reshape(-1)
+
+
+def check_k6_op(name, A, runs, flat=None):
+    """K6 against its twin on the grid operator A (and K1 against its
+    twin on ``flat``, the same operator in flat DIA form): error bound,
+    CUDA-event times.  Returns K6's numbers."""
+    import torch
+    from pysolvers_tpu_torch.ops import grid_spmv, spmv
+    dt = str(A.dtype).split(".")[1]
+    tol = TOL[dt]
+    D, n = len(A.pairs), A.n_rows
+    nbytes = (D + 2) * n * A.diags.element_size()
+    x = torch.as_tensor(np.random.default_rng(0).random(n), dtype=A.dtype,
+                        device=A.device)
+    y = grid_spmv.grid_dia_spmv(A, x)
+    y_ref = grid_spmv.grid_dia_spmv_torch(A, x)
+    torch.cuda.synchronize()
+    abs_err = float((y - y_ref).abs().max())
+    rel = abs_err / float(y_ref.abs().max())
+    ok = bool(torch.isfinite(y).all()) and rel <= tol
+    del y, y_ref
+    ms, plain_ms = time_pair(lambda: grid_spmv.grid_dia_spmv(A, x),
+                             lambda: grid_spmv.grid_dia_spmv_torch(A, x),
+                             runs=runs)
+    line = (f"K6 {name} {dt} grid {A.dims[0]}x{A.dims[1]} D={D} ldc={A.ldc} "
+            f"rel_err={rel:.3e} (tol {tol:g}) K6 {ms:.4f} ms "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s | twin {plain_ms:.4f} ms")
+    if flat is not None:
+        y1 = spmv.dia_spmv(flat, x)
+        y1_ref = spmv.dia_spmv_torch(flat, x)
+        torch.cuda.synchronize()
+        rel1 = float((y1 - y1_ref).abs().max() / y1_ref.abs().max())
+        if not (bool(torch.isfinite(y1).all()) and rel1 <= tol):
+            raise SystemExit(f"K1 disagrees with its twin on {name} {dt}: "
+                             f"rel {rel1:.3e} > {tol:g}")
+        k6_k1 = float((y1 - grid_spmv.grid_dia_spmv(A, x)).abs().max()
+                      / y1_ref.abs().max())
+        del y1, y1_ref
+        ms1, plain1 = time_pair(lambda: spmv.dia_spmv(flat, x),
+                                lambda: spmv.dia_spmv_torch(flat, x),
+                                runs=runs)
+        line += (f" || same operator flat: K1 {ms1:.4f} ms "
+                 f"{nbytes / (ms1 * 1e-3) / 1e9:.1f} GB/s rel_err="
+                 f"{rel1:.3e} | twin {plain1:.4f} ms; K6 against K1 "
+                 f"{k6_k1:.3e}")
+    phase(12, line)
+    if not ok:
+        raise SystemExit(f"K6 disagrees with its twin on {name} {dt}: rel "
+                         f"{rel:.3e} > {tol:g}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+
+
+def check_k6(device, m=GRID_M):
+    """Phase 12.  Assembles and uploads the full-width fine operator and
+    returns {"A": it (flat DIA, f64), "assembly_s", "upload_s": the host
+    seconds of both, "rec": K6's numbers on it in f64 for the kernels
+    record}."""
+    import torch
+    from pysolvers_tpu_torch import convert
+    from pysolvers_tpu_torch.linear.gmg_grid import _probe_coarse_dia
+    from pysolvers_tpu_torch.ops.grid_spmv import GridDiaMatrix
+    from pysolvers_tpu_torch.sparse.device import DiaMatrix
+    card = card_line()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    diags, offsets = lap2d_dia(m)
+    assembly_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = DiaMatrix.from_numpy(diags, offsets, (m * m, m * m), device=device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del diags
+    G = GridDiaMatrix.from_dia_device(A, (m, m))
+    phase(12, f"fine operator m={m} n={m * m} f64: host assembly "
+              f"{assembly_s:.3f} s, upload {upload_s:.3f} s, flat table "
+              f"{tuple(A.diags.shape)} and grid table "
+              f"{tuple(G.diags.shape)} ({A.diags.numel() * 8 / 1e9:.2f} GB "
+              f"each) | {card}")
+    rec = check_k6_op(f"fine operator m={m}", G, 21, flat=A)
+    A32 = DiaMatrix(A.diags.float(), A.offsets, A.offsets_dev, A.shape)
+    G32 = GridDiaMatrix.from_dia_device(A32, (m, m))
+    check_k6_op(f"fine operator m={m}", G32, 5, flat=A32)
+    del A32, G32, G
+    m_c = (m - 1) // 2
+    t0 = time.perf_counter()
+    Ac = _probe_coarse_dia(A, 2, m, m_c)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    Gc = GridDiaMatrix.from_dia_device(Ac, (m_c, m_c))
+    phase(12, f"probed level m={m_c} (9-point) in {probe_s:.3f} s")
+    check_k6_op(f"probed level m={m_c}", Gc, 5, flat=Ac)
+    Ac32 = DiaMatrix(Ac.diags.float(), Ac.offsets, Ac.offsets_dev, Ac.shape)
+    check_k6_op(f"probed level m={m_c}", GridDiaMatrix.from_dia_device(
+        Ac32, (m_c, m_c)), 5, flat=Ac32)
+    del Ac, Gc, Ac32
+    rng = np.random.default_rng(5)
+    pairs = tuple((dr, dc) for dr in range(-2, 3) for dc in range(-8, 9))
+    R = rng.standard_normal((len(pairs), 1001, 777))
+    for dt in (np.float64, np.float32):
+        check_k6_op("random nonzero at the edges", convert.grid_dia_from_arrays(
+            R.astype(dt), pairs, (1001, 777), device=device), 5)
+    phase(12, f"all K6 checks passed; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+    return dict(A=A, assembly_s=assembly_s, upload_s=upload_s, rec=rec)
+
+
+def profile_call(fn):
+    """Device busy share of one call of fn and its top device ops, from
+    torch.profiler's CUDA kernel self times over the call's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    dev_s = sum(r[0] for r in rows) / 1e6
+    return wall, dev_s, rows
+
+
+def grid_path(fine, device, m=GRID_M, num_levels=GRID_LEVELS):
+    """Phase 13: benchmarks/hbm_solve.py's run_solve at native f64, from
+    phase 12's fine operator (``fine``, whose flat table is taken out of
+    it and dropped after setup).  Returns the launches of the first
+    solve."""
+    import torch
+    from pysolvers_tpu_torch.core import StopReason
+    from pysolvers_tpu_torch.linear.gmg_grid import (
+        build_grid_hierarchy_device, grid_vc_apply)
+    from pysolvers_tpu_torch.linear.krylov import cg_solve
+    from pysolvers_tpu_torch.ops import matvec
+    from pysolvers_tpu_torch.ops.grid_spmv import GridDiaMatrix
+    from pysolvers_tpu_torch.utils.timing import Timer
+    card = card_line()
+    n = m * m
+    t0 = time.perf_counter()
+    x_star = np.random.default_rng(0).random(n)
+    b = lap2d_matvec(m, x_star)
+    b_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    Timer.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    A = fine.pop("A")
+    h = build_grid_hierarchy_device(A, num_levels, (m, m), smoother="jacobi")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del A                       # the flat fine table (hbm_solve.py:128-129)
+    A_f = h.levels[-1].A_dev
+    vc2 = grid_vc_apply(2)
+    t0 = time.perf_counter()
+    b_dev = torch.as_tensor(b, device=device)
+    torch.cuda.synchronize()
+    b_up_s = time.perf_counter() - t0
+
+    def solve():
+        return cg_solve(lambda v: matvec(A_f, v), b_dev, maxiter=200,
+                        tau=1e-10, precond=lambda r: vc2(h, r))
+
+    t0 = time.perf_counter()
+    x, st, _ = solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launches()
+    probes = {k: v for k, v in Timer._totals.items()
+              if k.startswith("gmg.probe")}
+    levels = [(h.ms[0], "dense inverse", h.ms[0] ** 2)] + [
+        (mk, type(L.A_dev).__name__, len(L.A_dev.pairs)
+         if isinstance(L.A_dev, GridDiaMatrix) else len(L.A_dev.offsets))
+        for mk, L in zip(h.ms[1:], h.levels[1:])]
+    phase(13, f"Lap2D(m={m}) n={n} f64, PCG + GMG{num_levels} (grid, "
+              f"jacobi, 2 V-cycles): host assembly {fine['assembly_s']:.3f} "
+              f"s, upload {fine['upload_s']:.3f} s, x* and b on the host "
+              f"{b_s:.3f} s, "
+              f"b upload {b_up_s:.3f} s; hierarchy {setup_s:.3f} s = probes "
+              f"{ {k[10:]: round(v, 4) for k, v in probes.items()} } + grid "
+              f"conversion {Timer.total('gmg.grid_convert'):.4f} s + "
+              f"coarsest inverse {Timer.total('gmg.coarse_inverse'):.4f} s")
+    phase(13, f"levels (m, format, D; the coarsest: its order), coarsest "
+              f"first: {levels}")
+    if not isinstance(A_f, GridDiaMatrix):
+        raise SystemExit("the fine level is not a GridDiaMatrix")
+    xh = x.cpu().numpy()
+    if xh.shape != (n,) or not np.isfinite(xh).all():
+        raise SystemExit(f"grid path: solution has shape {xh.shape} or is "
+                         "not finite")
+    resid = float(np.linalg.norm(b - lap2d_matvec(m, xh)) / np.linalg.norm(b))
+    err = float(np.linalg.norm(xh - x_star) / np.linalg.norm(x_star))
+    del xh, x
+    reason = StopReason(st.reason).name
+    if (reason != "CONVERGED" or resid > RESID_LIMIT or err > GRID_ERR_LIMIT
+            or counts["K6"] <= 0 or counts["K1"] <= 0):
+        raise SystemExit(f"grid path: reason={reason} resid={resid:.3e} "
+                         f"err={err:.3e} launches={counts}")
+    t0 = time.perf_counter()
+    _, st2, _ = solve()
+    torch.cuda.synchronize()
+    repeat_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    phase(13, f"iters={st.k} reason=CONVERGED host rel resid={resid:.3e} "
+              f"(matrix-free f64 stencil) err vs x*={err:.3e} (limit "
+              f"{GRID_ERR_LIMIT:g}); first solve {first_s:.3f} s, repeat "
+              f"{repeat_s:.3f} s = {1e3 * repeat_s / st2.k:.3f} ms/iter "
+              f"({st2.k} iters); launches {counts}; peak device memory "
+              f"{peak:.2f} GB (setup and solves) | {card}")
+    wall, dev_s, rows = profile_call(solve)
+    if rows:
+        top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{c}"
+                        for us, k, c in rows[:8])
+        phase(13, f"profiled repeat solve: wall {wall:.3f} s, device "
+                  f"{dev_s:.3f} s, busy {100 * dev_s / wall:.1f} %; top "
+                  f"device ops: {top}")
+    else:
+        phase(13, "profiled repeat solve: the profiler saw no device time "
+                  "(busy share not measured)")
+    return counts
+
+
+def oo_gmg(device, m=OO_GMG_M, num_levels=OO_GMG_LEVELS):
+    """Phase 14: the factory forms of GMG at run_large.py's m = 1023."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    H = pt.problems.fd_laplacian_2d(m)
+    x_star = np.random.default_rng(6).random(H.shape[0])
+    b = H.matvec(x_star)
+    runs = [(f"PCG + GMGPreconditionerType(galerkin={gal!r})",
+             pt.PCG(pt.CommonSolverArgs(maxiter=200, tau=1e-10),
+                    precond=pt.GMGPreconditionerType(
+                        (m, m), num_iters=2, num_levels=num_levels,
+                        smoother="jacobi", galerkin=gal),
+                    device=device)) for gal in ("host", "device")]
+    runs.append(("GMGVCycle(matrix_format='grid')", pt.GMGVCycle(
+        pt.CommonSolverArgs(maxiter=100, tau=1e-10), dims=(m, m),
+        num_levels=num_levels, matrix_format="grid", device=device)))
+    for name, typ in runs:
+        solver = typ.make_solver()
+        reset_launches()
+        t0 = time.perf_counter()
+        st = solver.solve(H, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        resid, err = check_solution(name, H, b, x_star, st, device)
+        if counts["K1"] <= 0 or counts["K6"] != 0:
+            raise SystemExit(f"{name}: launches {counts}")
+        solver.freeze_matrix()
+        solver.freeze_prec()
+        t0 = time.perf_counter()
+        st2 = solver.solve(H, b)
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+        phase(14, f"{name} fd_laplacian_2d({m}) f64 {num_levels} levels: "
+                  f"iters={st.iters} reason={st.reason.name} host rel "
+                  f"resid={resid:.3e} err={err:.3e}; first call {wall:.3f} "
+                  f"s (setup included), frozen repeat {repeat_s:.3f} s "
+                  f"({st2.iters} iters); launches {counts} | {card_line()}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -795,6 +1124,11 @@ def main():
     rec_bdia = check_bdia_kernels(A_blk, "cuda")
     k4_launches = block_single(H_blk, A_blk, "cuda", gen_s, pack_s)
     k5_launches = block_multi(H_blk, A_blk, "cuda")
+    del H_blk, A_blk
+    fine = check_k6("cuda")
+    rec_k6 = fine.pop("rec")
+    counts_grid = grid_path(fine, "cuda")
+    oo_gmg("cuda")
 
     src = "pysolvers_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
@@ -818,6 +1152,10 @@ def main():
         dict(name="bdia_spmm", route="cuda", source=src + "bdia_spmv.cu",
              replaces="pysolvers_tpu/ops/spmv.py:505",
              launches=k5_launches, **rec_bdia["K5"]),
+        dict(name="grid_dia_spmv", route="cuda",
+             source=src + "grid_dia_spmv.cu",
+             replaces="pysolvers_tpu/ops/grid_spmv.py:154",
+             launches=counts_grid["K6"], **rec_k6),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,10 @@ as they are.  A JAX ``BwsMatrix`` carries across through its tables and
 static fields (``bws_from_arrays``); its ``margin_blocks`` (always 0)
 has no counterpart here.  A JAX ``BdiaMatrix`` carries across through
 ``np.asarray(A.planes)`` and its static fields (``bdia_from_arrays``).
+A JAX ``GridDiaMatrix`` carries across through ``np.asarray(A.diags)``
+(its padded (D, mr_pad, mc_o) table), ``pairs`` and ``dims``
+(``grid_dia_from_arrays``); a JAX ``GridHierarchy`` level by level
+(``grid_hierarchy_from_arrays``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import numpy as np
 import torch
 
 from .linear.amg import DeviceHierarchy, DeviceLevel
+from .linear.gmg_grid import GridHierarchy, GridLevel
+from .ops.grid_spmv import GridDiaMatrix
 from .ops.trisolve import TriSolvePlan
 from .sparse.bdia import BdiaMatrix
 from .sparse.bws import BwsMatrix
@@ -60,6 +66,14 @@ def bdia_from_arrays(planes, offsets, shape, b: int,
                                  device=device)
 
 
+def grid_dia_from_arrays(diags, pairs, dims, device=None) -> GridDiaMatrix:
+    """GridDiaMatrix from a (D, >= mr, >= mc) grid table (the JAX package
+    pads it to (D, mr_pad, mc_o); its [:, :mr, :mc] part is kept), the D
+    (dr, dc) pairs and the grid dims (mr, mc)."""
+    return GridDiaMatrix.from_numpy(np.asarray(diags), pairs, dims,
+                                    device=device)
+
+
 def trisolve_plan_from_arrays(ell_data, ell_cols, diag, levels, lower: bool,
                               device=None) -> TriSolvePlan:
     """TriSolvePlan from the JAX plan's four tables and its orientation."""
@@ -69,11 +83,15 @@ def trisolve_plan_from_arrays(ell_data, ell_cols, diag, levels, lower: bool,
 
 
 def _operator(op: Optional[dict], device):
-    """A DIA operator is {"diags", "offsets", "shape"}; an ELL operator
-    {"data", "cols", "shape", "n_cols_pad"}; a BWS operator holds the
-    keyword arguments of ``bws_from_arrays`` (its "lidx" marks it)."""
+    """A DIA operator is {"diags", "offsets", "shape"}; a grid-DIA operator
+    {"diags", "pairs", "dims"}; an ELL operator {"data", "cols", "shape",
+    "n_cols_pad"}; a BWS operator holds the keyword arguments of
+    ``bws_from_arrays`` (its "lidx" marks it)."""
     if op is None:
         return None
+    if "pairs" in op:
+        return grid_dia_from_arrays(op["diags"], op["pairs"], op["dims"],
+                                    device)
     if "diags" in op:
         return dia_from_arrays(op["diags"], op["offsets"], op["shape"],
                                device)
@@ -100,7 +118,7 @@ def hierarchy_from_arrays(levels: Sequence[dict], A0_inv, smoother: str,
 
     Each level dict has the keys "A", "P", "R" (operator dicts as in
     ``_operator``, or None), "dinv" (array or None) and "gs_plan" (as in
-    ``_plan``)."""
+    ``_plan``), and optionally "cheb" ((theta, delta) or None)."""
     device = resolve_device(device)
     out = []
     for lev in levels:
@@ -111,7 +129,32 @@ def hierarchy_from_arrays(levels: Sequence[dict], A0_inv, smoother: str,
                                                       device=device),
             _plan(lev["gs_plan"], device),
             _operator(lev["P"], device),
-            _operator(lev["R"], device)))
+            _operator(lev["R"], device),
+            _cheb(lev.get("cheb"))))
     return DeviceHierarchy(out, torch.as_tensor(np.array(A0_inv),
                                                 device=device),
                            smoother, int(nu_pre), int(nu_post))
+
+
+def _cheb(cheb):
+    return None if cheb is None else tuple(float(v) for v in cheb)
+
+
+def grid_hierarchy_from_arrays(levels: Sequence[dict], A0_inv, ms, ndim: int,
+                               smoother: str, nu_pre: int, nu_post: int,
+                               device=None) -> GridHierarchy:
+    """GridHierarchy from per-level dicts, coarsest first (the first one
+    unused, as in the JAX package).  Each level dict has the keys "A" (a
+    DIA or grid-DIA operator dict as in ``_operator``, or None), "dinv"
+    (array or None) and "cheb" ((theta, delta) or None)."""
+    device = resolve_device(device)
+    out = [GridLevel(_operator(lev["A"], device),
+                     None if lev["dinv"] is None
+                     else torch.as_tensor(np.array(lev["dinv"]),
+                                          device=device),
+                     _cheb(lev["cheb"]))
+           for lev in levels]
+    return GridHierarchy(out, torch.as_tensor(np.array(A0_inv),
+                                              device=device),
+                         tuple(int(m) for m in ms), int(ndim), smoother,
+                         int(nu_pre), int(nu_post))

@@ -15,7 +15,13 @@ reference AMG stack:
 * V-cycle — pre/post smoothing, coarse direct solve (reference
   VCycleManager.py:9-62); smoothers: weighted Jacobi, Gauss-Seidel
   (level-scheduled backward solve like the reference's triu-based GS,
-  ClassicSmoothers.py:20-36) and symmetric Gauss-Seidel ("sgs").
+  ClassicSmoothers.py:20-36), symmetric Gauss-Seidel ("sgs") and
+  Chebyshev (degree = sweeps on D^{-1}A, bounds from the host power
+  iteration ``ChebyshevPreconditionerType.estimate_lmax``).
+* Ruge-Stueben coarsening (``coarsening="rs"``, ``amg_rs.py``).
+* The hooks ``AMGVCycleSolver._build_mlh`` / ``_build_device``, which the
+  geometric-MG solver (``gmg.py``) overrides; ``v_cycle`` runs a
+  structured-grid ``GridHierarchy`` (``gmg_grid.py``) as well.
 * AMG V-cycle solver + AMG preconditioner with fixed inner iterations and
   failOnMaxiter=False semantics (reference VCycleSolver.py:15-95,
   AMGPreconditioner.py:8-51).
@@ -37,8 +43,7 @@ Not ported:
 * the ``mesh=`` fine-level padding (``_pad_fine_level``) — ROADMAP slice 12;
 * the ``PST_AMG_CLASS_ROWS`` guard — a TPU runtime workaround;
 * the on-device coarse inverse (``ops/dense_inverse.py``);
-* ``galerkin="device"`` / ``build_sa_hierarchy_device`` and Ruge-Stueben
-  coarsening (slice 11), and the Chebyshev smoother (slice 3).
+* ``galerkin="device"`` / ``build_sa_hierarchy_device`` (slice 11).
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ from ..sparse.device import numpy_dtype, resolve_device, same_device
 from ..sparse.host import HostCSR
 from ..utils.timing import Timer
 from .krylov import KrylovState
-from .preconditioner import Preconditioner, PreconditionerType
+from .preconditioner import (ChebyshevPreconditionerType, Preconditioner,
+                             PreconditionerType)
 from ..api import (IterativeLinearSolver, IterativeLinearSolverType,
                    as_device_matrix)
 
@@ -232,9 +238,6 @@ def build_sa_hierarchy(A: HostCSR, num_levels: int = 2,
     ``coarsening``: "sa" (smoothed aggregation, the reference's production
     path) or "rs" (classical Ruge-Stüben, amg_rs.py — the reference's
     stashed intent)."""
-    if coarsening == "rs":
-        raise NotImplementedError("Ruge-Stueben coarsening is not ported "
-                                  "yet (ROADMAP slice 11)")
     mats = [A]
     Ps: List[HostCSR] = []
     Rs: List[HostCSR] = []
@@ -243,7 +246,11 @@ def build_sa_hierarchy(A: HostCSR, num_levels: int = 2,
         A_cur = mats[-1]
         if A_cur.shape[0] <= min_coarse:
             break
-        P, R, A_c = sa_coarsen(A_cur, tol)
+        if coarsening == "rs":
+            from .amg_rs import rs_coarsen
+            P, R, A_c = rs_coarsen(A_cur)
+        else:
+            P, R, A_c = sa_coarsen(A_cur, tol)
         if A_c.shape[0] >= A_cur.shape[0]:
             break  # aggregation stalled
         mats.append(A_c)
@@ -260,18 +267,17 @@ def build_sa_hierarchy(A: HostCSR, num_levels: int = 2,
 # Device cycle executor
 # ---------------------------------------------------------------------------
 
-_SMOOTHERS = ("jacobi", "gs", "sgs")
+_SMOOTHERS = ("jacobi", "gs", "sgs", "chebyshev")
 
 
 def _reject_unported(smoother: str = "auto", matrix_format: str = "auto",
-                     galerkin: str = "host", mesh=None):
-    """Raise for the options of the JAX AMG that wait for a later slice."""
-    if smoother == "chebyshev":
-        raise NotImplementedError("smoother='chebyshev' is not ported yet "
-                                  "(ROADMAP slice 3)")
+                     galerkin: str = "host", mesh=None,
+                     formats=("auto", "bws")):
+    """Raise for the options of the JAX AMG that wait for a later slice;
+    ``formats`` are the matrix formats the caller takes."""
     if smoother not in ("auto",) + _SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}")
-    if matrix_format not in ("auto", "bws"):
+    if matrix_format not in formats:
         raise ValueError(f"unknown matrix_format {matrix_format!r}")
     if galerkin == "device":
         raise NotImplementedError("galerkin='device' is not ported yet "
@@ -289,6 +295,7 @@ class DeviceLevel:
     gs_plan: Optional[object]        # "gs": triu plan; "sgs": (tril, triu)
     P_dev: Optional[object]          # prolongator (to this level), None at 0
     R_dev: Optional[object]          # restriction (from this level)
+    cheb: Optional[tuple] = None     # (theta, delta) for Chebyshev
 
 
 @dataclasses.dataclass
@@ -317,7 +324,8 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
 
     ``smoother``: "auto" (default — "gs" on the CPU for reference parity,
     "jacobi" on CUDA, where the level-scheduled trisolve is a chain of
-    small launches per level chunk), "jacobi", "gs" or "sgs".  Level
+    small launches per level chunk), "jacobi", "gs", "sgs" or
+    "chebyshev".  Level
     operators and transfers go through ``as_device_matrix``: DIA where
     banded (kernel K1 on CUDA), ELL otherwise.
 
@@ -382,12 +390,17 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                                            dtype=level_dtype, device=device),
                        build_trisolve_plan(A.extract_upper(), lower=False,
                                            dtype=level_dtype, device=device))
+        cheb = None
+        if smoother == "chebyshev" and k > 0:
+            lmax = ChebyshevPreconditionerType().estimate_lmax(A)
+            lmin = lmax / 30.0
+            cheb = (0.5 * (lmax + lmin), 0.5 * (lmax - lmin))
         P_dev = R_dev = None
         if k > 0:
             P_dev = device_matrix(mlh.prolongators[k - 1])
             R_dev = device_matrix(mlh.restrictions[k - 1])
         dinv = torch.as_tensor((1.0 / d).astype(level_dtype), device=device)
-        levels.append(DeviceLevel(A_dev, dinv, gs_plan, P_dev, R_dev))
+        levels.append(DeviceLevel(A_dev, dinv, gs_plan, P_dev, R_dev, cheb))
     # coarse direct solve: the host inverse, uploaded once and applied as
     # a dense matmul
     A0_h = mlh.matrices[0]
@@ -400,6 +413,23 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
 
 def _smooth(level: DeviceLevel, smoother: str, x, f, sweeps: int):
     """sweeps applications of the level smoother to A x = f."""
+    if smoother == "chebyshev":
+        if sweeps <= 0:
+            return x             # match jacobi/gs: zero sweeps = no-op
+        # degree-`sweeps` Chebyshev iteration on D^{-1}A over [lmin, lmax]
+        theta, delta = level.cheb
+        dv = level.dinv.to(x.dtype)
+        r = f - matvec(level.A_dev, x)
+        p = dv * r / theta
+        x = x + p
+        rho = delta / theta
+        for _ in range(sweeps - 1):
+            r = f - matvec(level.A_dev, x)
+            rho_new = 1.0 / (2.0 * theta / delta - rho)
+            p = rho_new * rho * p + (2.0 * rho_new / delta) * (dv * r)
+            x = x + p
+            rho = rho_new
+        return x
     for _ in range(sweeps):
         r = f - matvec(level.A_dev, x)
         if smoother == "jacobi":
@@ -423,7 +453,14 @@ def v_cycle(h: DeviceHierarchy, f: torch.Tensor,
     Structure parity: reference VCycleManager.runLevel (VCycleManager.py:31-62)
     — coarsest direct solve; else pre-smooth, restrict residual, recurse,
     prolong-correct, post-smooth.
+
+    Accepts either hierarchy flavor: the sparse-transfer
+    ``DeviceHierarchy`` or the structured-grid ``GridHierarchy``
+    (gmg_grid.py).
     """
+    from .gmg_grid import GridHierarchy, v_cycle_grid
+    if isinstance(h, GridHierarchy):
+        return v_cycle_grid(h, f, x)
 
     def run(k, f_k, x_k):
         lev = h.levels[k]
@@ -476,12 +513,15 @@ class AMGVCycle(IterativeLinearSolverType):
     """Factory for the AMG V-cycle stationary solver (reference
     VCycleSolver.py:15-36; defaults numLevels=2, nuPre=nuPost=2, GS)."""
 
+    matrix_formats = ("auto", "bws")
+
     def __init__(self, control: Optional[SolverConfig] = None,
                  num_levels: int = 2, nu_pre: int = 2, nu_post: int = 2,
                  smoother: str = "auto", base_tol: float = 0.08, mesh=None,
                  matrix_format: str = "auto", galerkin: str = "host",
                  device=None):
-        _reject_unported(smoother, matrix_format, galerkin, mesh)
+        _reject_unported(smoother, matrix_format, galerkin, mesh,
+                         formats=self.matrix_formats)
         super().__init__(control, None, device=device)
         self.num_levels = num_levels
         self.nu_pre = nu_pre
@@ -500,7 +540,21 @@ class AMGVCycleSolver(IterativeLinearSolver):
     def __init__(self, typ: AMGVCycle):
         super().__init__(typ.control, typ.precond, device=typ.device)
         self.typ = typ
-        self._hierarchy: Optional[DeviceHierarchy] = None
+        self._hierarchy = None
+
+    def _build_mlh(self, A_host: HostCSR) -> MLHierarchy:
+        """Hierarchy construction hook — the geometric-MG subclass
+        overrides this (linear/gmg.py) while reusing the device cycle."""
+        return build_sa_hierarchy(A_host, self.typ.num_levels,
+                                  self.typ.base_tol)
+
+    def _build_device(self, mlh: MLHierarchy, dtype):
+        """Device-lowering hook — the structured-grid executor
+        (gmg.py ``matrix_format="grid"``) overrides this."""
+        return build_device_hierarchy(
+            mlh, self.typ.smoother, self.typ.nu_pre, self.typ.nu_post,
+            dtype=dtype, device=self.device,
+            matrix_format=self.typ.matrix_format)
 
     def _ensure_hierarchy(self, A_host: HostCSR, dtype):
         # hierarchy rebuilt unless matrix frozen (reference VCycleSolver.py:71-76)
@@ -508,12 +562,7 @@ class AMGVCycleSolver(IterativeLinearSolver):
             return
         if A_host is None:
             raise ValueError("AMG setup needs a HostCSR matrix")
-        mlh = build_sa_hierarchy(A_host, self.typ.num_levels,
-                                 self.typ.base_tol)
-        self._hierarchy = build_device_hierarchy(
-            mlh, self.typ.smoother, self.typ.nu_pre, self.typ.nu_post,
-            dtype=dtype, device=self.device,
-            matrix_format=self.typ.matrix_format)
+        self._hierarchy = self._build_device(self._build_mlh(A_host), dtype)
 
     def solve(self, A, b) -> SolveStatus:
         # hierarchy setup needs only the HOST matrix — the V-cycle runs on

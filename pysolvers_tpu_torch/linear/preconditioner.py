@@ -9,8 +9,13 @@ A ``Preconditioner`` is a pair of apply functions over device tensors;
 ``form`` runs the host setup phase and puts the state on ``device`` (the
 solver passes its own; ``None`` means ``torch.get_default_device()``).
 
-Not ported: ``ChebyshevPreconditionerType`` (ROADMAP slice 3); the
-``traced`` field (it let JAX pass the state as a jit argument).
+``ChebyshevPreconditionerType`` is the SpMV-only polynomial
+preconditioner; its host power iteration ``estimate_lmax`` is copied
+verbatim (the AMG and GMG host builders call it for their Chebyshev
+smoothers).
+
+Not ported: the ``traced`` field (it let JAX pass the state as a jit
+argument).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..ops import matvec
 from ..sparse.device import resolve_device
 from ..sparse.host import HostCSR
 
@@ -99,3 +105,67 @@ class JacobiPreconditionerType(PreconditionerType):
         d = np.where(d == 0, 1.0, d)
         dinv = torch.as_tensor(1.0 / d, device=resolve_device(device))
         return self._wrap(lambda v: dinv * v)
+
+
+class ChebyshevPreconditionerType(PreconditionerType):
+    """Chebyshev polynomial preconditioner: SpMV-only (no triangular
+    solves), fixed degree.
+
+    Approximates A^{-1} on the eigenvalue interval [lmax/eig_ratio, lmax],
+    where lmax is a power-iteration estimate of the largest eigenvalue of
+    D^{-1}A (host setup phase).
+    """
+
+    def __init__(self, degree: int = 3, eig_ratio: float = 30.0,
+                 side: str = "right", power_iters: int = 20):
+        self.degree = degree
+        self.eig_ratio = eig_ratio
+        self.side = side
+        self.power_iters = power_iters
+
+    def estimate_lmax(self, A_host: HostCSR) -> float:
+        """Power iteration on D^{-1}A (host, setup phase)."""
+        n = A_host.shape[0]
+        d = A_host.diagonal()
+        d = np.where(d == 0, 1.0, d)
+        rng = np.random.default_rng(42)
+        v = rng.random(n)
+        lam = 1.0
+        for _ in range(self.power_iters):
+            w = A_host.matvec(v) / d
+            lam = np.linalg.norm(w)
+            if lam == 0:
+                return 1.0
+            v = w / lam
+        return float(lam) * 1.05   # safety margin
+
+    def form(self, A_host: HostCSR, A_dev=None, device=None) -> Preconditioner:
+        if A_dev is None:
+            raise ValueError("Chebyshev preconditioner needs the device matrix")
+        lmax = self.estimate_lmax(A_host)
+        lmin = lmax / self.eig_ratio
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        d = A_host.diagonal()
+        d = np.where(d == 0, 1.0, d)
+        dinv = torch.as_tensor(1.0 / d, device=A_dev.device)
+        degree = self.degree
+
+        def apply(r):
+            # standard Chebyshev iteration for A z = r, z0 = 0,
+            # preconditioned by D^{-1}
+            dv = dinv.to(r.dtype)
+            z = torch.zeros_like(r)
+            rho_old = delta / theta
+            p = dv * r / theta
+            z = z + p
+            rho = rho_old
+            for _ in range(degree - 1):
+                res = dv * (r - matvec(A_dev, z))
+                rho_new = 1.0 / (2.0 * theta / delta - rho)
+                p = rho_new * rho * p + (2.0 * rho_new / delta) * res
+                z = z + p
+                rho = rho_new
+            return z
+
+        return self._wrap(apply)

@@ -21,10 +21,17 @@ Port of ``pysolvers_tpu/ops/spmv.py``:
   row-layout (k, b·nb) block in one pass over the planes (more than 16
   rows are chunked into several launches).  Twin: ``bdia_spmm_torch``.
   ``bdia_spmm`` takes the (n, k) column form and calls K5 on rows.
+* ``dia_spmm`` — Y = A @ X for a DiaMatrix and an (n, k) block: the JAX
+  package's shift-and-FMA over the whole block (an XLA function there,
+  not a kernel, so plain torch here, updating the sum in place), with its
+  rectangular padding rule.  ``dia_spmm_rows`` is the same product on the
+  row layout (k, n); the GMG prober calls it on its comb batches.
 * ``matvec`` — dispatch by format; a ``BwsMatrix`` goes to ``bws_spmv``
   (kernels K2/K3, ``ops/bws_spmv.py``) in the pack's ordering, a
-  ``BdiaMatrix`` to ``bdia_spmv`` in planar ordering.  ``matmat`` — the
-  multi-vector dispatch, for ``BdiaMatrix`` and dense operators.
+  ``BdiaMatrix`` to ``bdia_spmv`` in planar ordering, a ``GridDiaMatrix``
+  to ``grid_dia_spmv`` (kernel K6, ``ops/grid_spmv.py``).  ``matmat`` —
+  the multi-vector dispatch, for ``DiaMatrix``, ``BdiaMatrix`` and dense
+  operators.
 
 Every kernel wrapper runs its twin for a CPU tensor, and for a CUDA tensor
 launches its kernel or raises — it never falls back.
@@ -37,8 +44,8 @@ layout work: ``bdia_rows_to_tiles``/``bdia_tiles_to_rows``,
 (n_tiles+2, b, k, tile) operand of ``bdia_spmm_tiles`` (Mosaic's VMEM
 windows and XLA's 128-lane padding of a k-minor axis — K5 reads the row
 layout directly with bounds masks), the VMEM tile budget and x windows of
-``bdia_spmv_pallas``.  Still to port: the scalar SpMM forms
-``dia_spmm``/``ell_spmm`` (ROADMAP slice 10) and the grid kernel (slice 11).
+``bdia_spmv_pallas``.  Still to port: the ELL SpMM ``ell_spmm_xla``
+(ROADMAP slice 10).
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from ..sparse.bws import BwsMatrix
 from ..sparse.device import DiaMatrix, EllMatrix
 from . import _cuda_build
 from .bws_spmv import bws_spmv
+from .grid_spmv import GridDiaMatrix, grid_dia_spmv
 
 # Launches of K1, K4 and K5 since the last reset: each wrapper adds one per
 # kernel launch and nowhere else (a run reads them to show that its path
@@ -262,6 +270,30 @@ def bdia_spmm(A: BdiaMatrix, X: torch.Tensor) -> torch.Tensor:
     return bdia_spmm_rows(A, X.T.contiguous()).T
 
 
+def dia_spmm_rows(A: DiaMatrix, V: torch.Tensor) -> torch.Tensor:
+    """Y = (A @ V.T).T for a row-layout block V of shape (k, n_cols):
+    shift-and-FMA over all k rows at once, one pass over the diagonals."""
+    n, n_cols = A.shape
+    n_pad = A.ld
+    k = V.shape[0]
+    acc = torch.zeros((k, n_pad), dtype=A.dtype, device=V.device)
+    if A.offsets:
+        pad_lo = max(0, -min(A.offsets))
+        # pad against V's row length (= n_cols), NOT n_rows — the
+        # rectangular-operator clamping hazard of dia_spmv_torch
+        pad_hi = max(0, max(0, max(A.offsets)) + n_pad - n_cols)
+        Vp = torch.nn.functional.pad(V.to(A.dtype), (pad_lo, pad_hi))
+        for d, off in enumerate(A.offsets):
+            acc.addcmul_(A.diags[d], Vp[:, off + pad_lo: off + pad_lo + n_pad])
+    return acc[:, :n]
+
+
+def dia_spmm(A: DiaMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for banded A and an (n_cols, k) block X: ``dia_spmm_rows``
+    on X.T (a transposed view; the result is one too)."""
+    return dia_spmm_rows(A, X.T).T
+
+
 def matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for any device format of the port.
 
@@ -270,6 +302,8 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
     ordering."""
     if isinstance(A, DiaMatrix):
         return dia_spmv(A, x)
+    if isinstance(A, GridDiaMatrix):
+        return grid_dia_spmv(A, x)
     if isinstance(A, BdiaMatrix):
         return bdia_spmv(A, x)
     if isinstance(A, BwsMatrix):
@@ -285,12 +319,14 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
 
 def matmat(A, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for a multi-vector X of shape (n, k): a BdiaMatrix (planar
-    ordering, kernel K5) or a dense operator."""
+    ordering, kernel K5), a DiaMatrix (``dia_spmm``) or a dense operator."""
     if isinstance(A, BdiaMatrix):
         return bdia_spmm(A, X)
+    if isinstance(A, DiaMatrix):
+        return dia_spmm(A, X)
     if isinstance(A, torch.Tensor):
         return A @ X
-    if isinstance(A, (DiaMatrix, EllMatrix, BwsMatrix)):
+    if isinstance(A, (EllMatrix, BwsMatrix)):
         raise NotImplementedError(f"matmat on a {type(A).__name__} is not "
                                   "ported yet (ROADMAP slice 10)")
     raise TypeError(f"unknown matrix type {type(A)}")

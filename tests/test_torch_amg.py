@@ -55,7 +55,9 @@ def dump_hierarchy(h):
     levels = [dict(A=_op_arrays(L.A_dev), P=_op_arrays(L.P_dev),
                    R=_op_arrays(L.R_dev),
                    dinv=None if L.dinv is None else np.asarray(L.dinv),
-                   gs_plan=_plan_arrays(L.gs_plan)) for L in h.levels]
+                   gs_plan=_plan_arrays(L.gs_plan),
+                   cheb=None if L.cheb is None
+                   else tuple(float(c) for c in L.cheb)) for L in h.levels]
     return dict(levels=levels, A0_inv=np.asarray(h.A0_inv),
                 smoother=h.smoother, nu_pre=h.nu_pre, nu_post=h.nu_post)
 
@@ -72,7 +74,7 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / np.linalg.norm(b)
 
 
-@pytest.mark.parametrize("smoother", ["jacobi", "gs", "sgs"])
+@pytest.mark.parametrize("smoother", ["jacobi", "gs", "sgs", "chebyshev"])
 @pytest.mark.parametrize("built_by", ["converted", "port"])
 def test_v_cycle_matches_jax(problem, smoother, built_by):
     Hj, Ht, f, x0 = problem

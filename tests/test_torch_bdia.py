@@ -292,11 +292,10 @@ def test_wrappers_refuse_bad_arguments():
         spmv.bdia_spmv(A.astype(torch.float16), x.half())
 
 
-@pytest.mark.parametrize("fmt", ["dia", "ell", "bws"])
+@pytest.mark.parametrize("fmt", ["ell", "bws"])
 def test_matmat_refuses_unported_formats(fmt):
     H = pt.problems.fd_laplacian_2d(50)
-    A = {"dia": lambda: DiaMatrix.from_host_csr(H, device="cpu"),
-         "ell": lambda: EllMatrix.from_host_csr(H, device="cpu"),
+    A = {"ell": lambda: EllMatrix.from_host_csr(H, device="cpu"),
          "bws": lambda: pt.BwsMatrix.from_host_csr(H, use_rcm=False,
                                                    device="cpu")}[fmt]()
     with pytest.raises(NotImplementedError, match="ROADMAP slice 10"):

@@ -1,4 +1,4 @@
-"""Kernels K1, K2/K3, K4/K5 and K7 and the port's main paths on a CUDA device,
+"""Kernels K1, K2/K3, K4/K5, K6 and K7 and the port's main paths on a CUDA device,
 against the plain twins and the CPU path.  Every test here needs the card and skips without
 one; this file imports neither jax nor pysolvers_tpu, so it runs on a GPU
 machine without JAX:
@@ -12,7 +12,9 @@ K2/K3 against their twin, relative to max|y|: 1e-5 in f32 and 1e-12 in
 f64 — the kernel sums each lane over the segments and then the slots of a
 row by warp shuffles, the twin in torch's reduction order.  K4/K5 against
 their twins: K1's tolerances — both add the (d, q) terms in the same
-order, the kernels with FMAs.  K7 is a pure gather and must be bit-exact.
+order, the kernels with FMAs.  K6 against its twin: K1's tolerances, for
+the same reason (both add the D terms in pair order).  K7 is a pure
+gather and must be bit-exact.
 """
 import numpy as np
 import pytest
@@ -366,3 +368,125 @@ def test_solve_bdia_on_cuda_matches_cpu(cuda, precond):
         assert abs(st.iters - ref.iters) <= 1
         x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
         assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-8
+
+
+# K6: (mr, mc, pairs) of grid tables, random and nonzero at every position
+# (column and row edges included), so a kernel that indexes x flat or
+# swaps the dimensions fails; the stencil cases come from assembly
+_ALL_PAIRS = tuple((dr, dc) for dr in range(-2, 3) for dc in range(-8, 9))
+GRID_CASES = {
+    "random_13x37_D85": (13, 37, _ALL_PAIRS),
+    "random_37x13_D85": (37, 13, _ALL_PAIRS),
+    "random_1001x777_D85": (1001, 777, _ALL_PAIRS),
+    "random_300x1100_D9": (300, 1100, tuple(
+        (dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1))),
+    # more row blocks than a launch grid holds: the kernel's row loop
+    "random_600000x2_D3": (600000, 2, ((-1, 0), (0, 1), (1, -1))),
+}
+
+
+def _grid(case, dtype, device):
+    from pysolvers_tpu_torch import convert
+    mr, mc, pairs = GRID_CASES[case]
+    rng = np.random.default_rng(len(case))
+    G = rng.standard_normal((len(pairs), mr, mc))
+    G = G.astype(np.float32 if dtype == torch.float32 else np.float64)
+    return convert.grid_dia_from_arrays(G, pairs, (mr, mc), device=device)
+
+
+def _grid_stencil(m, nine, dtype, device):
+    from pysolvers_tpu_torch.ops.grid_spmv import GridDiaMatrix
+    if nine:
+        rng = np.random.default_rng(m)
+        ii, jj = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+        g = ii * m + jj
+        rows, cols, vals = [], [], []
+        for di in (-1, 0, 1):
+            for dj in (-1, 0, 1):
+                ni, nj = ii + di, jj + dj
+                ok = (ni >= 0) & (ni < m) & (nj >= 0) & (nj < m)
+                rows.append(g[ok])
+                cols.append((ni * m + nj)[ok])
+                vals.append(rng.normal(size=int(ok.sum())))
+        H = HostCSR.from_coo(np.concatenate(rows), np.concatenate(cols),
+                             np.concatenate(vals), (m * m, m * m))
+    else:
+        H = pt.problems.fd_laplacian_2d(m)
+    A = DiaMatrix.from_host_csr(H, dtype=dtype, device=device)
+    return GridDiaMatrix.from_dia(A, (m, m))
+
+
+def _check_k6(A, dtype, cuda):
+    from pysolvers_tpu_torch.ops import grid_spmv
+    x = torch.randn(A.n_cols, dtype=dtype, device=cuda)
+    before = grid_spmv.grid_dia_spmv_launches
+    y = grid_spmv.grid_dia_spmv(A, x)
+    torch.cuda.synchronize()
+    assert grid_spmv.grid_dia_spmv_launches == before + 1
+    assert y.shape == (A.n_rows,) and y.device == x.device
+    assert _rel(y, grid_spmv.grid_dia_spmv_torch(A, x)) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_matches_twin(cuda, case, dtype):
+    _check_k6(_grid(case, dtype, cuda), dtype, cuda)
+
+
+@pytest.mark.parametrize("m,nine", [(17, False), (40, False), (24, True),
+                                    (257, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_matches_twin_on_stencils(cuda, m, nine, dtype):
+    _check_k6(_grid_stencil(m, nine, dtype, cuda), dtype, cuda)
+
+
+def test_k6_on_cuda_never_runs_the_twin(cuda, monkeypatch):
+    from pysolvers_tpu_torch.ops import grid_spmv
+    A = _grid("random_13x37_D85", torch.float64, cuda)
+    ref = grid_spmv.grid_dia_spmv_torch
+    x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+    want = ref(A, x)
+    monkeypatch.setattr(grid_spmv, "grid_dia_spmv_torch", lambda *a: (
+        _ for _ in ()).throw(AssertionError("twin on CUDA")))
+    y = pt.matvec(A, x)
+    torch.cuda.synchronize()
+    assert _rel(y, want) <= 1e-13
+    with pytest.raises(ValueError, match="contiguous"):
+        grid_spmv.grid_dia_spmv(A, torch.randn(2 * A.n_cols,
+                                               dtype=torch.float64,
+                                               device=cuda)[::2])
+
+
+@pytest.mark.parametrize("galerkin", ["host", "device"])
+def test_gmg_solve_on_cuda_runs_k6(cuda, galerkin, monkeypatch):
+    """PCG + grid GMG with the K6 threshold lowered, so that the probed
+    levels of m >= 31 are GridDiaMatrix on the card, against the CPU."""
+    from pysolvers_tpu_torch.linear import gmg_grid
+    from pysolvers_tpu_torch.ops import grid_spmv
+    monkeypatch.setattr(gmg_grid, "GRID_KERNEL_MIN_M", 31)
+    m = 63
+    H = pt.problems.fd_laplacian_2d(m)
+    x_star = np.random.default_rng(4).random(H.shape[0])
+    b = H.matvec(x_star)
+
+    def run(device):
+        return pt.PCG(pt.CommonSolverArgs(maxiter=100, tau=1e-10),
+                      precond=pt.GMGPreconditionerType(
+                          (m, m), num_iters=2, num_levels=4,
+                          smoother="jacobi", galerkin=galerkin),
+                      device=device).make_solver()
+
+    grid_spmv.grid_dia_spmv_launches = spmv.dia_spmv_launches = 0
+    solver = run(cuda)
+    st = solver.solve(H, b)
+    h = solver._formed_prec.state
+    if galerkin == "device":
+        assert isinstance(h.levels[-1].A_dev, grid_spmv.GridDiaMatrix)
+        assert grid_spmv.grid_dia_spmv_launches > 0
+    assert spmv.dia_spmv_launches > 0
+    ref = run("cpu").solve(H, b)
+    assert st.success and st.reason == ref.reason
+    assert st.iters == ref.iters
+    x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
+    assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-9
+    assert np.linalg.norm(b - H.matvec(x)) / np.linalg.norm(b) <= 1e-9

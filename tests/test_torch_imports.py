@@ -33,5 +33,6 @@ def test_scan_sees_the_package():
     assert len(FILES) > 15
     for rel in ("ops/spmv.py", "ops/bws_spmv.py", "ops/probe.py",
                 "sparse/bws.py", "problems/fem.py", "sparse/bdia.py",
-                "linear/block_precond.py"):
+                "linear/block_precond.py", "ops/grid_spmv.py",
+                "linear/gmg.py", "linear/gmg_grid.py", "linear/amg_rs.py"):
         assert ROOT / "pysolvers_tpu_torch" / rel in FILES

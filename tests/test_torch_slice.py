@@ -92,7 +92,6 @@ UNPORTED = {
     ).make_solver().solve((H, pt.BwsMatrix.from_host_csr(
         H, use_rcm=False, device="cpu")), b),
     "amg_galerkin_device": lambda H, b: pt.AMG(galerkin="device"),
-    "amg_chebyshev": lambda H, b: pt.AMG(smoother="chebyshev"),
     "vcycle_mesh": lambda H, b: pt.AMGVCycle(mesh=object()),
 }
 
