@@ -12,29 +12,34 @@ more (any failure raises and the script exits non-zero):
 2. build of kernels K1 (``csrc/dia_spmv.cu``), K2/K3 (``csrc/bws_spmv.cu``),
    K7 (``csrc/lane_gather_probe.cu``), K4/K5 (``csrc/bdia_spmv.cu``) and K6
    (``csrc/grid_dia_spmv.cu``), one nvcc each, all at once, and their
-   ptxas reports;
+   ptxas reports (registers, spills; a spill in K4/K5 fails);
 3. K1 against its plain twin on the card, f32 and f64: bench.py's two
    operators, the main path's fine operator, a rectangular and a 9-offset
-   operator; error bound, then CUDA-event times of both;
+   operator; error bound, then CUDA-event times of both and of the
+   library call computing the same product (here a torch CSR product);
 4. the banded main path at real size: PCG + SA-AMG (6 levels) on
    fd_laplacian_2d(1023) in f64 through the factory API, checked on the
    host with scipy;
-5. the ``solve()`` front end on fd_laplacian_2d(150), checked the same way;
+5. the ``solve()`` front end on fd_laplacian_2d(150) with no ``device``
+   argument: it must solve on the card (the port's default), checked the
+   same way;
 6. K7, the lane-index probe of ``benchmarks/probe_idx16.py``, bit-exact
-   against numpy;
+   against numpy, timed beside its twin and ``torch.gather``;
 7. the unstructured main path: PCG + SA-AMG (4 levels, every level
    operator and transfer packed as BWS) on the RCM-reordered
    fem_poisson_2d_unstructured(1025, seed=3) in f64, n = 1,048,576, with
    the caller's BWS pack as the fine operator; checked on the host;
 8. K3 (as the path takes it) and K2 (forced, ``s_classes=()``) against
    their twin on every operator of that hierarchy, f32 and f64, plus a
-   graph_laplacian_rgg operator at n = 1e6; CUDA-event times of both;
+   graph_laplacian_rgg operator at n = 1e6; CUDA-event times of both (and
+   of a torch CSR product on the fine operator);
 9. K4 (``csrc/bdia_spmv.cu``) and K5 (the same source, k = 1, 8, 16 and 20
    right-hand sides) against their twins, f32 and f64: the block lane's
    full-width operator, fd_vector_laplacian_2d(648, b=5, coupling=0.2)
    (``benchmarks/bdia_solve_tpu.py``'s configuration, n = 2,099,520), its
    D = 1 block-Jacobi inverse and a random nonsymmetric b = 3 operator
-   with odd nb; CUDA-event times of both;
+   with odd nb; CUDA-event times of both (and of a torch BSR product in
+   node-major order on the first two, at k = 1 and 8);
 10. the block lane single-RHS at full width: ``solve(BdiaMatrix, b)`` in
    f64 with precond "auto" (block-Jacobi) and "bmg", checked on the host;
 11. the block lane multi-RHS: ``solve(BdiaMatrix, B)`` with k = 8
@@ -46,7 +51,8 @@ more (any failure raises and the script exits non-zero):
    grid, n = 104,837,121, assembled on the host straight into DIA storage)
    in grid form, with K1 timed on the same operator in flat DIA form; the
    probed 9-point m = 5119 level; a random D = 85 table on a 1001 x 777
-   grid, nonzero at the edges; CUDA-event times of both;
+   grid, nonzero at the edges; CUDA-event times of both (and of a torch
+   CSR product of the first two, built on the card);
 13. the geometric-multigrid path at full width (``hbm_solve.py``'s
    ``run_solve`` at its default m = 10239, native f64): PCG preconditioned
    by two V-cycles of the 10-level device-probed grid hierarchy
@@ -58,12 +64,15 @@ more (any failure raises and the script exits non-zero):
    ``GMGPreconditionerType`` (galerkin "host" and "device") and
    ``GMGVCycle(matrix_format="grid")``, checked on the host with scipy.
 
-Then one JSON line on the kernels, and last the device record
+Then one JSON line on the kernels (each with its bound from the bytes it
+must move and the operations it must do, and the time of the library
+call, which the port itself never makes), and last the device record
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -78,7 +87,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # terms in the same order; they differ because nvcc contracts each
 # multiply-add into one FMA (one rounding) where the twin rounds the
 # product and the sum separately.  That is a few ulps of the partial sums,
-# which stay within a small factor of max|y| on these operators.
+# which stay within a small factor of max|y| on these operators.  The same
+# bound holds K4, K5 (which adds its D·b terms in (q, d) order, the twin in
+# (d, q): a reordering, again a few ulps of the partial sums) and K6.
 TOL = {"float32": 1e-6, "float64": 1e-13}
 # K2/K3 against their twin, as max|y_kernel - y_twin| / max|y_twin|.  The
 # kernel sums each lane over the segments (FMA) and then the slots of a
@@ -111,6 +122,14 @@ GRID_ERR_LIMIT = 1e-6
 OO_GMG_M, OO_GMG_LEVELS = 1023, 6
 KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv",
            "grid_dia_spmv")
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
+# at 3.35 TB/s; 67 TFLOP/s in f32 and 34 TFLOP/s in f64 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# how torch words a refusal of an op for a dtype or a sparse layout
+LIBRARY_REFUSAL = re.compile(r"not implemented|not supported|unsupported|"
+                             r"layout|dtype|Sparse(Csr|Bsr)", re.IGNORECASE)
 
 
 def phase(n, msg):
@@ -130,19 +149,23 @@ def host_residual(H, x, b):
     return float(np.linalg.norm(b - S @ x) / np.linalg.norm(b))
 
 
-def time_pair(kernel, plain, runs=21, calls=10, warmup=3):
+def time_pair(kernel, plain, library=None, runs=21, calls=10, warmup=3):
     """Milliseconds per call of each version: the median over ``runs``
     runs, each ``calls`` back-to-back calls between two CUDA events (so
     launch latency overlaps the previous call, as in a solver loop),
-    timed in turns (plain, kernel, kernel, plain, ...) after a warm-up."""
+    timed in turns (plain, kernel, library, library, kernel, plain, ...)
+    after a warm-up.  Returns (kernel, plain, library or None)."""
     import torch
+    fns = {"plain": plain, "kernel": kernel}
+    if library is not None:
+        fns["library"] = library
     for _ in range(warmup):
-        kernel()
-        plain()
+        for fn in fns.values():
+            fn()
     torch.cuda.synchronize()
-    times = {"kernel": [], "plain": []}
+    times = {name: [] for name in fns}
     for r in range(runs):
-        order = (("plain", plain), ("kernel", kernel))
+        order = list(fns.items())
         for name, fn in (order if r % 2 == 0 else order[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -152,7 +175,98 @@ def time_pair(kernel, plain, runs=21, calls=10, warmup=3):
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end) / calls)
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+    med = {name: statistics.median(t) for name, t in times.items()}
+    return med["kernel"], med["plain"], med.get("library")
+
+
+def bound(nbytes, flops, dt):
+    """The least time the card could take for a call (kernels-record
+    keys): each input byte read once and each output byte written once
+    over the HBM rate, or the operations over the peak rate of their type,
+    whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dt]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def try_library(call):
+    """(call, None) when torch takes the library call, else (None, its
+    error) when torch refuses it for its dtype or layout.  Any other
+    failure (out of memory, a CUDA error) raises.  The call is a yardstick
+    timed beside a kernel; the port never makes it."""
+    import torch
+    try:
+        call()
+        torch.cuda.synchronize()
+    except NotImplementedError as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    except RuntimeError as e:
+        msg = str(e)
+        if (isinstance(e, torch.cuda.OutOfMemoryError) or "CUDA error" in msg
+                or not LIBRARY_REFUSAL.search(msg)):
+            raise
+        return None, f"{type(e).__name__}: {msg.splitlines()[0][:160]}"
+    return call, None
+
+
+def library_fields(name, lib_ms, error):
+    """The kernels-record keys of a library call."""
+    out = dict(library_ms=lib_ms, library_call=name)
+    if error is not None:
+        out["library_error"] = error
+    return out
+
+
+def lib_text(name, lib_ms, error):
+    return (f"library {name} {lib_ms:.4f} ms" if error is None
+            else f"library {name} refused ({error})")
+
+
+def csr_of_host(H, dtype, device):
+    """torch.sparse_csr_tensor of a HostCSR (int32 indices) on device."""
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(H.indptr.astype(np.int32), device=device),
+        torch.as_tensor(H.indices.astype(np.int32), device=device),
+        torch.as_tensor(H.data, dtype=dtype, device=device),
+        size=tuple(H.shape))
+
+
+def csr_of_dia(A):
+    """torch.sparse_csr_tensor of a DiaMatrix, built on its device from
+    the diagonal table (stored zeros dropped; int32 indices)."""
+    import torch
+    n, nc = A.shape
+    order = sorted(range(len(A.offsets)), key=lambda d: A.offsets[d])
+    offs = torch.tensor([A.offsets[d] for d in order], device=A.device)
+    cols = torch.arange(n, device=A.device)[:, None] + offs[None, :]
+    vals = (A.diags if order == sorted(order) else A.diags[order])[:, :n].T
+    keep = (cols >= 0) & (cols < nc) & (vals != 0)
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=A.device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    col = cols[keep].to(torch.int32)
+    del cols
+    return torch.sparse_csr_tensor(crow, col, vals[keep], size=(n, nc))
+
+
+def bsr_of_bdia(A):
+    """torch.sparse_bsr_tensor of a BdiaMatrix in node-major order,
+    blocksize (b, b), built on its device from the planes (int32
+    indices)."""
+    import torch
+    b, nb, D = A.b, A.nb, len(A.offsets)
+    order = sorted(range(D), key=lambda d: A.offsets[d])
+    P = A.planes[:, :, :nb].reshape(D, b, b, nb)[order]     # [d, q, p, i]
+    blocks = P.permute(3, 0, 2, 1)                         # [i, d, p, q]
+    offs = torch.tensor([A.offsets[d] for d in order], device=A.device)
+    cols = torch.arange(nb, device=A.device)[:, None] + offs[None, :]
+    keep = (cols >= 0) & (cols < nb)
+    crow = torch.zeros(nb + 1, dtype=torch.int32, device=A.device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    return torch.sparse_bsr_tensor(crow, cols[keep].to(torch.int32),
+                                   blocks[keep].contiguous(),
+                                   size=tuple(A.shape))
 
 
 def k1_operators():
@@ -190,6 +304,18 @@ def k1_operators():
     return ops
 
 
+def library_agrees(kernel_out, lib_out, tol, what):
+    """The library call computes the kernel's function: its result within
+    10 tol of the kernel's, relative to max|y| (else the yardstick, or its
+    conversion here, is wrong and the script fails)."""
+    rel = float((kernel_out - lib_out).abs().max()
+                / kernel_out.abs().max())
+    if not rel <= 10 * tol:
+        raise SystemExit(f"the library call of {what} disagrees with the "
+                         f"kernel: rel {rel:.3e} > {10 * tol:g}")
+    return rel
+
+
 def check_k1(device):
     """Phase 3.  Returns the kernels-record numbers at the main path's
     shape (fd_laplacian_2d(1023), f64)."""
@@ -202,6 +328,7 @@ def check_k1(device):
     for name, H in k1_operators():
         xh = rng.random(H.shape[1])
         for dt in (torch.float32, torch.float64):
+            dts = str(dt).split(".")[1]
             A = DiaMatrix.from_host_csr(H, dtype=dt, device=device)
             x = torch.as_tensor(xh, dtype=dt, device=device)
             y = spmv.dia_spmv(A, x)
@@ -209,23 +336,35 @@ def check_k1(device):
             torch.cuda.synchronize()
             abs_err = float((y - y_ref).abs().max())
             rel = abs_err / float(y_ref.abs().max())
-            tol = TOL[str(dt).split(".")[1]]
+            tol = TOL[dts]
             ok = bool(torch.isfinite(y).all()) and rel <= tol
-            ms, plain_ms = time_pair(lambda: spmv.dia_spmv(A, x),
-                                     lambda: spmv.dia_spmv_torch(A, x))
+            S = csr_of_host(H, dt, device)
+            lib, lib_err = try_library(lambda: S @ x)
+            if lib is not None:
+                library_agrees(y, lib(), tol, f"K1 {name} {dts}")
+            ms, plain_ms, lib_ms = time_pair(
+                lambda: spmv.dia_spmv(A, x), lambda: spmv.dia_spmv_torch(A, x),
+                lib)
             D, n = len(A.offsets), A.n_rows
-            gbs = (D + 2) * n * A.diags.element_size() / (ms * 1e-3) / 1e9
-            phase(3, f"K1 {name} {str(dt)[6:]} shape={A.shape} D={D} "
+            size = A.diags.element_size()
+            nbytes = D * n * size + (A.n_cols + n) * size
+            bnd = bound(nbytes, 2 * H.nnz, dts)
+            phase(3, f"K1 {name} {dts} shape={A.shape} D={D} "
                      f"rel_err={rel:.3e} (tol {tol:g}) K1 {ms:.4f} ms "
-                     f"{H.nnz / (ms * 1e-3):.4e} nnz/s {gbs:.1f} GB/s | "
-                     f"twin {plain_ms:.4f} ms "
-                     f"{H.nnz / (plain_ms * 1e-3):.4e} nnz/s | {card}")
+                     f"{H.nnz / (ms * 1e-3):.4e} nnz/s "
+                     f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
+                     f"{bnd['bound_ms']:.4f} ms | twin {plain_ms:.4f} ms "
+                     f"{H.nnz / (plain_ms * 1e-3):.4e} nnz/s | "
+                     f"{lib_text('CSR @ x', lib_ms, lib_err)} | {card}")
             if not ok:
                 raise SystemExit(f"K1 disagrees with its twin on {name} "
                                  f"{dt}: rel {rel:.3e} > {tol:g}")
             if name.startswith("main-path") and dt == torch.float64:
-                record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
-            del A, x, y, y_ref
+                record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                              **bnd, **library_fields(
+                                  "torch.sparse_csr_tensor @ x", lib_ms,
+                                  lib_err))
+            del A, x, y, y_ref, S, lib
     return record
 
 
@@ -307,8 +446,8 @@ def main_path(device, m=1023):
 
 
 def front_end(device, m=150):
-    """Phase 5: solve() with every argument but tau and device at its
-    default."""
+    """Phase 5: solve() with every argument but tau at its default, the
+    device included: the solution must come back on ``device``."""
     import torch
     import pysolvers_tpu_torch as pt
     from pysolvers_tpu_torch.ops import spmv
@@ -317,14 +456,16 @@ def front_end(device, m=150):
     b = H.matvec(x_star)
     reset_launches()
     t0 = time.perf_counter()
-    st = pt.solve(H, b, tau=1e-10, device=device)
+    # no device: the port solves on the card by default
+    st = pt.solve(H, b, tau=1e-10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = spmv.dia_spmv_launches
     resid, err = check_solution("solve()", H, b, x_star, st, device)
     if launches <= 0:
         raise SystemExit("solve() launched K1 no time")
-    phase(5, f"solve() fd_laplacian_2d({m}) n={H.shape[0]}: {wall:.3f} s "
+    phase(5, f"solve() fd_laplacian_2d({m}) n={H.shape[0]} with no device "
+             f"argument: solution on {st.soln.device}, {wall:.3f} s "
              f"iters={st.iters} reason={st.reason.name} K1 launches="
              f"{launches} host rel resid={resid:.3e} err={err:.3e}")
 
@@ -362,11 +503,32 @@ def build_kernels():
         built = dict(zip(KERNELS, pool.map(build, KERNELS)))
     wall = time.perf_counter() - t0
     for name, (so, secs) in built.items():
+        regs, spills, kernel, k5 = {}, 0, None, {}
         with open(os.path.join(_cuda_build.BUILD_DIR, f"lib{name}.log")) as f:
-            ptxas = " / ".join(ln.strip() for ln in f if "ptxas info" in ln
-                               and ("Used" in ln or "spill" in ln))
+            for ln in f:
+                if "Compiling entry function" in ln:
+                    kernel = ln.split("'")[1] if "'" in ln else ln.strip()
+                spills += sum(int(s) for s in
+                              re.findall(r"(\d+) bytes spill", ln))
+                used = re.search(r"Used (\d+) registers", ln)
+                if used:
+                    regs[kernel] = int(used.group(1))
+                    # K5's instantiations bdia_spmm_kernel<T, PB, K>
+                    inst = re.search(
+                        r"bdia_spmm_kernelI([df])Li(\d+)ELi(\d+)E",
+                        kernel or "")
+                    if inst:
+                        k5["%s%s,%s" % inst.groups()] = regs[kernel]
         phase(2, f"built {os.path.relpath(so, ROOT)} in {secs:.2f} s; "
-                 f"{ptxas}")
+                 f"{len(regs)} kernels, registers {min(regs.values())}.."
+                 f"{max(regs.values())}, spill bytes {spills}")
+        if k5:
+            phase(2, f"K5 registers per instantiation (f|d PB,K): {k5}")
+        # K5 keeps PB * K accumulators in registers by design: a spill
+        # there is a fault of the kernel's sizing, not a tuning matter
+        if spills and name == "bdia_spmv":
+            raise SystemExit(f"ptxas reports {spills} spill bytes in "
+                             f"lib{name} (see lib{name}.log)")
     phase(2, f"all {len(KERNELS)} builds in {wall:.2f} s")
 
 
@@ -386,15 +548,24 @@ def probe_k7(device):
                           dtype=torch.int16, device=device)
     x = torch.as_tensor(rng.random((8, 128)), dtype=torch.float32,
                         device=device)
-    if not torch.equal(probe.lane_gather_probe(idx, x),
-                       probe.lane_gather_probe_torch(idx, x)):
+    idx64 = idx.to(torch.int64)
+    out = probe.lane_gather_probe(idx, x)
+    if not (torch.equal(out, probe.lane_gather_probe_torch(idx, x))
+            and torch.equal(out, torch.gather(x, 1, idx64))):
         raise SystemExit("K7 disagrees with its twin")
-    ms, plain_ms = time_pair(lambda: probe.lane_gather_probe(idx, x),
-                             lambda: probe.lane_gather_probe_torch(idx, x))
+    ms, plain_ms, lib_ms = time_pair(
+        lambda: probe.lane_gather_probe(idx, x),
+        lambda: probe.lane_gather_probe_torch(idx, x),
+        lambda: torch.gather(x, 1, idx64))
+    probe.check_lane_indices(device)
+    bnd = bound(idx.numel() * (2 + 4 + 4), 0, "float32")
     phase(6, f"K7 int16 lane indices widened to int32: OK, bit-exact "
-             f"against numpy and the twin (max err {err}); K7 {ms:.4f} ms | "
-             f"twin {plain_ms:.4f} ms | {card_line()}")
-    return dict(launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+             f"against numpy and the twin (max err {err}); K7 {ms:.4f} ms "
+             f"(bound {bnd['bound_ms']:.2e} ms) | twin {plain_ms:.4f} ms | "
+             f"library torch.gather {lib_ms:.4f} ms | {card_line()}")
+    return dict(launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
+                **library_fields("torch.gather(x, 1, idx_int64)", lib_ms,
+                                 None))
 
 
 def unstructured_path(device, m=1025, num_levels=4):
@@ -505,8 +676,9 @@ def bws_operators(Ap, A_bws, solver, num_levels):
     return [o for o in ops if isinstance(o[2], BwsMatrix)]
 
 
-def check_bws(name, H, A, x, runs):
-    """One K2 or K3 comparison and timing line; returns the numbers."""
+def check_bws(name, H, A, x, runs, library=False):
+    """One K2 or K3 comparison and timing line (with ``library``, the CSR
+    of H in pack order timed beside it); returns the numbers."""
     import torch
     from pysolvers_tpu_torch.ops import bws_spmv
     classes = bws_spmv.use_classes(A)
@@ -518,24 +690,45 @@ def check_bws(name, H, A, x, runs):
     dt = str(A.dtype).split(".")[1]
     tol = BWS_TOL[dt]
     ok = bool(torch.isfinite(y).all()) and rel <= tol
-    ms, plain_ms = time_pair(lambda: bws_spmv.bws_spmv(A, x),
-                             lambda: bws_spmv.bws_spmv_torch(A, x), runs=runs)
+    lib, lib_err, lib_line = None, None, ""
+    if library:
+        if not torch.equal(A.perm.cpu(), torch.arange(H.shape[0],
+                                                      dtype=A.perm.dtype)):
+            raise SystemExit(f"{name}: the pack is not in H's order")
+        S = csr_of_host(H, A.dtype, x.device)
+        lib, lib_err = try_library(lambda: S @ x)
+        if lib is not None:
+            library_agrees(y, lib(), tol, f"K2/K3 {name} {dt}")
+    ms, plain_ms, lib_ms = time_pair(
+        lambda: bws_spmv.bws_spmv(A, x), lambda: bws_spmv.bws_spmv_torch(A, x),
+        lib, runs=runs)
+    if library:
+        lib_line = f" | {lib_text('CSR @ x', lib_ms, lib_err)}"
     slots = A.classed_slots if classes else A.nnz_slots
     size = A.data.element_size()
-    nbytes = ((size + 4) * slots + 4 * slots // 128
+    # the pack's own bytes (padded slots included): a rate, not a bound
+    pack_bytes = ((size + 4) * slots + 4 * slots // 128
+                  + size * (A.n_cols + A.n_rows))
+    # the bound is the operator's, one for K2 and K3: the CSR minimum
+    # (values and int32 column indices, row pointers, x read, y written)
+    nbytes = ((size + 4) * H.nnz + 4 * (A.n_rows + 1)
               + size * (A.n_cols + A.n_rows))
+    bnd = bound(nbytes, 2 * H.nnz, dt)
     kernel = "K3" if classes else "K2"
     phase(8, f"{kernel} {name} {dt} shape={A.shape} gr={A.group_rows} "
              f"gt={A.gt} S={A.n_segments} W={A.win_blocks} classes="
              f"{[(s, len(i)) for s, i in A.s_classes]} slots={slots} "
              f"fill={H.nnz / slots:.3f} rel_err={rel:.3e} (tol {tol:g}) "
              f"{kernel} {ms:.4f} ms {H.nnz / (ms * 1e-3):.4e} nnz/s "
-             f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s | twin {plain_ms:.4f} "
-             f"ms {H.nnz / (plain_ms * 1e-3):.4e} nnz/s")
+             f"pack {pack_bytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
+             f"{bnd['bound_ms']:.4f} ms | twin {plain_ms:.4f} "
+             f"ms {H.nnz / (plain_ms * 1e-3):.4e} nnz/s{lib_line}")
     if not ok:
         raise SystemExit(f"{kernel} disagrees with its twin on {name} {dt}: "
                          f"rel {rel:.3e} > {tol:g}")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **bnd,
+                **library_fields("torch.sparse_csr_tensor @ x (pack order)",
+                                 lib_ms, lib_err))
 
 
 def check_bws_kernels(ops, device, rgg_n=1_000_000):
@@ -561,11 +754,12 @@ def check_bws_kernels(ops, device, rgg_n=1_000_000):
             main = i == 0 and dt == torch.float64
             runs = 21 if main else 5
             if bws_spmv.use_classes(A):
-                r = check_bws(name, H, A, x, runs)
+                r = check_bws(name, H, A, x, runs, library=i == 0)
                 if main:
                     rec["K3"] = r
             r = check_bws(name + " (classes stripped)", H,
-                          dataclasses.replace(A, s_classes=()), x, runs)
+                          dataclasses.replace(A, s_classes=()), x, runs,
+                          library=i == 0)
             if main:
                 rec["K2"] = r
             del A, x
@@ -605,15 +799,19 @@ def block_operator(device):
     return H, A, gen_s, pack_s
 
 
-def check_bdia(name, A, rng, ks, runs):
+def check_bdia(name, A, rng, ks, runs, library=()):
     """K4 and K5 (at each k of ``ks``) against their twins on A, with
-    CUDA-event times.  Returns {"K4": numbers, ("K5", k): numbers}."""
+    CUDA-event times; for K4 (k = None) and each k in ``library``, the BSR
+    product in node-major order timed beside them.  Returns {"K4":
+    numbers, ("K5", k): numbers}."""
     import torch
     from pysolvers_tpu_torch.ops import spmv
     dt = str(A.dtype).split(".")[1]
     tol = TOL[dt]
     size = A.planes.element_size()
-    plane_bytes = len(A.offsets) * A.b * A.b * A.nb * size
+    b, nb, D = A.b, A.nb, len(A.offsets)
+    plane_bytes = D * b * b * nb * size
+    S = bsr_of_bdia(A) if library else None
     out = {}
     for k in (None,) + tuple(ks):
         if k is None:
@@ -622,31 +820,51 @@ def check_bdia(name, A, rng, ks, runs):
             kernel = lambda: spmv.bdia_spmv(A, v)            # noqa: E731
             plain = lambda: spmv.bdia_spmv_torch(A, v)       # noqa: E731
             tag, nvec = "K4", 1
+            # planar x -> node-major x, outside the timed window
+            v_nm = v.reshape(b, nb).T.contiguous().reshape(-1)
+            call = "torch.sparse_bsr_tensor (b, b) @ x"
         else:
             v = torch.as_tensor(rng.standard_normal((k, A.n_cols)),
                                 dtype=A.dtype, device=A.device)
             kernel = lambda: spmv.bdia_spmm_rows(A, v)       # noqa: E731
             plain = lambda: spmv.bdia_spmm_torch(A, v)       # noqa: E731
             tag, nvec = f"K5 k={k}", k
+            v_nm = v.reshape(k, b, nb).permute(2, 1, 0).reshape(
+                nb * b, k).contiguous()
+            call = f"torch.sparse_bsr_tensor (b, b) @ X (n, {k})"
         y, y_ref = kernel(), plain()
         torch.cuda.synchronize()
         abs_err = float((y - y_ref).abs().max())
         rel = abs_err / float(y_ref.abs().max())
         ok = bool(torch.isfinite(y).all()) and rel <= tol
-        ms, plain_ms = time_pair(kernel, plain, runs=runs)
+        lib, lib_err, lib_line = None, None, ""
+        if S is not None and (k is None or k in library):
+            lib, lib_err = try_library(lambda: S @ v_nm)
+            if lib is not None:
+                # node-major result -> planar rows
+                y_lib = lib().reshape(nb, b, -1).permute(2, 1, 0).reshape(
+                    y.shape)
+                library_agrees(y, y_lib, tol, f"{tag} {name} {dt}")
+        ms, plain_ms, lib_ms = time_pair(kernel, plain, lib, runs=runs)
+        if S is not None and (k is None or k in library):
+            short = "BSR @ x" if k is None else f"BSR @ X (n, {k})"
+            lib_line = f" | {lib_text(short, lib_ms, lib_err)}"
         nbytes = plane_bytes + 2 * nvec * A.n_rows * size
-        phase(9, f"{tag} {name} {dt} b={A.b} nb={A.nb} nb_pad={A.nb_pad} "
-                 f"offsets={A.offsets if len(A.offsets) < 8 else len(A.offsets)} "
+        bnd = bound(nbytes, 2 * D * b * b * nb * nvec, dt)
+        phase(9, f"{tag} {name} {dt} b={b} nb={nb} nb_pad={A.nb_pad} "
+                 f"offsets={A.offsets if D < 8 else D} "
                  f"rel_err={rel:.3e} (tol {tol:g}) {tag.split()[0]} {ms:.4f} ms "
-                 f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s | twin "
+                 f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
+                 f"{bnd['bound_ms']:.4f} ms | twin "
                  f"{plain_ms:.4f} ms {nbytes / (plain_ms * 1e-3) / 1e9:.1f} "
-                 f"GB/s")
+                 f"GB/s{lib_line}")
         if not ok:
             raise SystemExit(f"{tag} disagrees with its twin on {name} {dt}: "
                              f"rel {rel:.3e} > {tol:g}")
         out["K4" if k is None else ("K5", k)] = dict(
-            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
-        del v, y, y_ref
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **bnd,
+            **library_fields(call, lib_ms, lib_err))
+        del v, v_nm, y, y_ref, lib
     return out
 
 
@@ -658,12 +876,14 @@ def check_bdia_kernels(A64, device):
         block_jacobi_bdia_matrix)
     rng = np.random.default_rng(0)
     card = card_line()
-    rec = check_bdia("full width", A64, rng, (1, 8, 16, 20), runs=21)
-    check_bdia("full width", A64.astype("float32"), rng, (8,), runs=5)
+    rec = check_bdia("full width", A64, rng, (1, 8, 16, 20), runs=21,
+                     library=(BLOCK_K,))
+    check_bdia("full width", A64.astype("float32"), rng, (BLOCK_K,), runs=11,
+               library=(BLOCK_K,))
     M = block_jacobi_bdia_matrix(A64)
     for dt in ("float64", "float32"):
-        check_bdia("block-Jacobi inverse (D = 1)", M.astype(dt), rng, (8,),
-                   runs=5)
+        check_bdia("block-Jacobi inverse (D = 1)", M.astype(dt), rng,
+                   (BLOCK_K,), runs=11, library=(BLOCK_K,))
     nb, b, offsets = 1001, 3, (-37, -1, 0, 2, 37)
     planes = rng.standard_normal((len(offsets) * b, b, 1024))
     R = convert.bdia_from_arrays(planes, offsets, (nb * b, nb * b), b,
@@ -844,13 +1064,23 @@ def check_k6_op(name, A, runs, flat=None):
     abs_err = float((y - y_ref).abs().max())
     rel = abs_err / float(y_ref.abs().max())
     ok = bool(torch.isfinite(y).all()) and rel <= tol
+    lib, lib_err, lib_line = None, None, ""
+    if flat is not None:
+        S = csr_of_dia(flat)
+        lib, lib_err = try_library(lambda: S @ x)
+        if lib is not None:
+            library_agrees(y, lib(), tol, f"K6 {name} {dt}")
     del y, y_ref
-    ms, plain_ms = time_pair(lambda: grid_spmv.grid_dia_spmv(A, x),
-                             lambda: grid_spmv.grid_dia_spmv_torch(A, x),
-                             runs=runs)
+    ms, plain_ms, lib_ms = time_pair(
+        lambda: grid_spmv.grid_dia_spmv(A, x),
+        lambda: grid_spmv.grid_dia_spmv_torch(A, x), lib, runs=runs)
+    if flat is not None:
+        lib_line = f" | {lib_text('CSR @ x', lib_ms, lib_err)}"
+    bnd = bound(nbytes, 2 * D * n, dt)
     line = (f"K6 {name} {dt} grid {A.dims[0]}x{A.dims[1]} D={D} ldc={A.ldc} "
             f"rel_err={rel:.3e} (tol {tol:g}) K6 {ms:.4f} ms "
-            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s | twin {plain_ms:.4f} ms")
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
+            f"{bnd['bound_ms']:.4f} ms | twin {plain_ms:.4f} ms{lib_line}")
     if flat is not None:
         y1 = spmv.dia_spmv(flat, x)
         y1_ref = spmv.dia_spmv_torch(flat, x)
@@ -862,18 +1092,22 @@ def check_k6_op(name, A, runs, flat=None):
         k6_k1 = float((y1 - grid_spmv.grid_dia_spmv(A, x)).abs().max()
                       / y1_ref.abs().max())
         del y1, y1_ref
-        ms1, plain1 = time_pair(lambda: spmv.dia_spmv(flat, x),
-                                lambda: spmv.dia_spmv_torch(flat, x),
-                                runs=runs)
+        ms1, plain1, lib1 = time_pair(lambda: spmv.dia_spmv(flat, x),
+                                      lambda: spmv.dia_spmv_torch(flat, x),
+                                      lib, runs=runs)
         line += (f" || same operator flat: K1 {ms1:.4f} ms "
                  f"{nbytes / (ms1 * 1e-3) / 1e9:.1f} GB/s rel_err="
-                 f"{rel1:.3e} | twin {plain1:.4f} ms; K6 against K1 "
-                 f"{k6_k1:.3e}")
+                 f"{rel1:.3e} | twin {plain1:.4f} ms"
+                 f"{'' if lib is None else f' | CSR @ x {lib1:.4f} ms'}; "
+                 f"K6 against K1 {k6_k1:.3e}")
+        del S, lib
     phase(12, line)
     if not ok:
         raise SystemExit(f"K6 disagrees with its twin on {name} {dt}: rel "
                          f"{rel:.3e} > {tol:g}")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **bnd,
+                **library_fields("torch.sparse_csr_tensor @ x", lib_ms,
+                                 lib_err))
 
 
 def check_k6(device, m=GRID_M):

@@ -58,7 +58,7 @@ def CommonSolverArgs(maxiter: int = 100, tau: float = 1e-8,
 
 def as_device_matrix(A, dtype=None, device=None):
     """Pick the best device format for a matrix: DIA for banded stencils,
-    ELL otherwise, on ``device`` (None: the default device).  Returns
+    ELL otherwise, on ``device`` (None: the current CUDA device).  Returns
     (A_host or None, A_dev)."""
     if isinstance(A, (EllMatrix, DiaMatrix, BwsMatrix)):
         return None, A
@@ -109,8 +109,8 @@ class LinearSolver:
 
 
 class IterativeLinearSolverType(LinearSolverType):
-    """``device``: where the solve runs (None: ``torch.get_default_device()``
-    at construction)."""
+    """``device``: where the solve runs (None: the current CUDA device at
+    construction; a RuntimeError where there is none)."""
 
     def __init__(self, control: Optional[SolverConfig] = None,
                  precond: Optional[PreconditionerType] = None,

@@ -3,7 +3,8 @@
 The solver's "weights" are its device operators and the AMG hierarchy.
 These functions take numpy arrays only (``np.asarray`` of the JAX
 package's leaves — this package never imports jax) and build the port's
-objects on ``device`` (None: ``torch.get_default_device()``), so both
+objects on ``device`` (None: the current CUDA device; it raises where there
+is none, so CPU callers pass ``device="cpu"``), so both
 packages can run the same operators.
 
 A JAX ``DiaTiled`` is flattened with ``.to_dia()`` before its diagonals are

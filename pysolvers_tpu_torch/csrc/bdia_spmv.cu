@@ -28,14 +28,27 @@
 //   read is coalesced; each x value x[q, i + off_d] is loaded once and used
 //   for all the thread's p.  The per-p accumulators live in registers (the
 //   group width is a template parameter).
-// - K5: one thread per (block row i, output dof p = blockIdx.y) with the k
-//   row accumulators in registers (k is a template parameter, 1..16).  Each
-//   plane value is loaded once and used k times; the k reads of V are
-//   coalesced along i.  More than 16 rows are chunked by the wrapper.
-// - x is not staged: the D * b shifted reads of neighbouring threads hit the
-//   same lines, so x comes from device memory about once and is reused
-//   through L1/L2.  The TPU kernels' x windows, VMEM tile budget and halo
-//   tiles have no counterpart.  The offsets are staged in shared memory.
+// - K5: one thread per block row i (threads along i, so every plane and V
+//   read is coalesced) and group of PB output dofs, holding acc[PB][K] for
+//   the PB dofs and K >= k rows in registers.  For each (q, d) it loads the
+//   k values V[r, q, i + off_d] once and the PB plane values, all before
+//   the first of the PB * k FMAs, so 13 loads are in flight per thread at
+//   b = 5, k = 8: each V value passes through L1/L2 D * ceil(b / PB) times
+//   per call, not D * b times (one thread per (i, p) re-read it for every
+//   p and was bound by those loads, not by device memory).  q is the outer
+//   loop, so the reads at i - 1, i, i + 1 follow each other in L1; each
+//   output thus adds its D * b terms in (q, d) order, the twin in (d, q).
+//   PB and the row capacity K (1, 2, 4, 8 or 16; rows past k are masked)
+//   are template parameters with PB * K <= kSpmmAcc, so the accumulators
+//   never spill; grid.y = ceil(b / PB) balanced groups (one group at
+//   b = 5, k = 8).  More than 16 rows are chunked by the wrapper.  The
+//   kernel stays bound by device memory (2 flops per 8-byte plane value),
+//   so there is no case for wgmma or the f64 tensor cores.
+// - x (V) is not staged: the shifted reads of neighbouring threads hit the
+//   same lines (the +-1 neighbours in L1, the +-m rows in L2), so x comes
+//   from device memory about once.  The TPU kernels' x windows, VMEM tile
+//   budget and halo tiles have no counterpart.  The offsets are staged in
+//   shared memory.
 //
 // Indices are 64-bit, as in K1.
 //
@@ -47,10 +60,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // K4
+constexpr int kSpmmThreads = 128;      // K5
 constexpr long long kMaxBlocks = 8192;  // beyond this the grid-stride loop
-constexpr int kMaxGroup = 8;            // K4: output dofs per thread
+constexpr int kMaxGroup = 8;            // output dofs per thread
 constexpr int kMaxRows = 16;            // K5: right-hand sides per launch
+constexpr int kSpmmAcc = 64;            // K5: accumulators per thread
 
 __device__ __forceinline__ void stage_offsets(const int* offsets, int* s_off,
                                               int n_offsets) {
@@ -90,38 +105,63 @@ bdia_spmv_kernel(const T* __restrict__ planes, const int* __restrict__ offsets,
   }
 }
 
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
+// minBlocks = 1: without it ptxas caps the registers for occupancy (128
+// at f64, PB = 5, K = 8), which schedules fewer loads ahead of the FMAs
+template <typename T, int PB, int K>
+__global__ void __launch_bounds__(kSpmmThreads, 1)
 bdia_spmm_kernel(const T* __restrict__ planes, const int* __restrict__ offsets,
                  const T* __restrict__ v, T* __restrict__ out, long long nb,
-                 long long nb_pad, int b, int n_offsets) {
+                 long long nb_pad, int b, int n_offsets, int k) {
   extern __shared__ int s_off[];
   stage_offsets(offsets, s_off, n_offsets);
-  const int p = blockIdx.y;
+  const int p0 = blockIdx.y * PB;
   const long long ld = (long long)b * nb;  // row stride of V and Y
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < nb; i += stride) {
-    T acc[K];
+    T acc[PB][K];
 #pragma unroll
-    for (int r = 0; r < K; ++r) acc[r] = T(0);
-    for (int d = 0; d < n_offsets; ++d) {
-      const long long col = i + s_off[d];
-      if (col < 0 || col >= nb) continue;
-      for (int q = 0; q < b; ++q) {
-        const T a = planes[((long long)(d * b + q) * b + p) * nb_pad + i];
+    for (int j = 0; j < PB; ++j)
+#pragma unroll
+      for (int r = 0; r < K; ++r) acc[j][r] = T(0);
+    // q outer, d inner: the reads of V at i - 1, i, i + 1 follow each
+    // other, so the lines stay in L1.  Not unrolled: the loads of one
+    // (q, d) step are meant to fill the memory pipe, and unrolled steps
+    // would add registers
+#pragma unroll 1
+    for (int q = 0; q < b; ++q) {
+#pragma unroll 1
+      for (int d = 0; d < n_offsets; ++d) {
+        const long long col = i + s_off[d];
+        if (col < 0 || col >= nb) continue;
+        // the k values V[r, q, i + off_d], loaded once for all PB dofs,
+        // and the PB plane values, all issued before the first FMA
         const T* vq = v + (long long)q * nb + col;
+        T vr[K];
 #pragma unroll
-        for (int r = 0; r < K; ++r) acc[r] += a * vq[r * ld];
+        for (int r = 0; r < K; ++r) vr[r] = r < k ? vq[r * ld] : T(0);
+        const T* pl = planes + ((long long)(d * b + q) * b + p0) * nb_pad + i;
+        T a[PB];
+#pragma unroll
+        for (int j = 0; j < PB; ++j)
+          a[j] = p0 + j < b ? pl[(long long)j * nb_pad] : T(0);
+#pragma unroll
+        for (int j = 0; j < PB; ++j)
+#pragma unroll
+          for (int r = 0; r < K; ++r) acc[j][r] += a[j] * vr[r];
       }
     }
 #pragma unroll
-    for (int r = 0; r < K; ++r) out[r * ld + (long long)p * nb + i] = acc[r];
+    for (int j = 0; j < PB; ++j)
+      if (p0 + j < b)
+#pragma unroll
+        for (int r = 0; r < K; ++r)
+          if (r < k) out[r * ld + (long long)(p0 + j) * nb + i] = acc[j][r];
   }
 }
 
-unsigned grid_x(long long nb) {
-  long long blocks = (nb + kThreads - 1) / kThreads;
+unsigned grid_x(long long nb, int threads = kThreads) {
+  long long blocks = (nb + threads - 1) / threads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
   return (unsigned)blocks;
@@ -159,15 +199,37 @@ int spmv(const void* planes, const void* offsets, const void* x, void* y,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K>
+template <typename T, int PB, int K>
 void launch_spmm(const void* planes, const void* offsets, const void* v,
                  void* out, long long nb, long long nb_pad, int b,
-                 int n_offsets, cudaStream_t stream) {
-  const dim3 grid(grid_x(nb), (unsigned)b);
-  bdia_spmm_kernel<T, K><<<grid, kThreads, (size_t)n_offsets * sizeof(int),
-                           stream>>>(
-      (const T*)planes, (const int*)offsets, (const T*)v, (T*)out, nb, nb_pad,
-      b, n_offsets);
+                 int n_offsets, int k, unsigned groups, cudaStream_t stream) {
+  const dim3 grid(grid_x(nb, kSpmmThreads), groups);
+  bdia_spmm_kernel<T, PB, K>
+      <<<grid, kSpmmThreads, (size_t)n_offsets * sizeof(int), stream>>>(
+          (const T*)planes, (const int*)offsets, (const T*)v, (T*)out, nb,
+          nb_pad, b, n_offsets, k);
+}
+
+// K5 at a row capacity K: the b output dofs in grid.y = ceil(b / PB)
+// balanced groups of PB <= min(8, kSpmmAcc / K).
+template <typename T, int K>
+void spmm_rows(const void* planes, const void* offsets, const void* v,
+               void* out, long long nb, long long nb_pad, int b,
+               int n_offsets, int k, cudaStream_t s) {
+  constexpr int kPbMax = kSpmmAcc / K < kMaxGroup ? kSpmmAcc / K : kMaxGroup;
+  const int groups = (b + kPbMax - 1) / kPbMax;
+  const int pb = (b + groups - 1) / groups;
+#define PST_SPMM_PB(PBV)                                                    \
+  case PBV:                                                                 \
+    if constexpr (PBV <= kPbMax)                                            \
+      launch_spmm<T, PBV, K>(planes, offsets, v, out, nb, nb_pad, b,        \
+                             n_offsets, k, (unsigned)groups, s);            \
+    break;
+  switch (pb) {
+    PST_SPMM_PB(1) PST_SPMM_PB(2) PST_SPMM_PB(3) PST_SPMM_PB(4)
+    PST_SPMM_PB(5) PST_SPMM_PB(6) PST_SPMM_PB(7) PST_SPMM_PB(8)
+  }
+#undef PST_SPMM_PB
 }
 
 template <typename T>
@@ -178,18 +240,18 @@ int spmm(const void* planes, const void* offsets, const void* v, void* out,
       k > kMaxRows || b * b * n_offsets > (1 << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream_ptr;
-  const int bi = (int)b, D = (int)n_offsets;
-#define PST_SPMM_CASE(KK)                                                   \
-  case KK:                                                                  \
-    launch_spmm<T, KK>(planes, offsets, v, out, nb, nb_pad, bi, D, s);      \
-    break;
-  switch ((int)k) {
-    PST_SPMM_CASE(1) PST_SPMM_CASE(2) PST_SPMM_CASE(3) PST_SPMM_CASE(4)
-    PST_SPMM_CASE(5) PST_SPMM_CASE(6) PST_SPMM_CASE(7) PST_SPMM_CASE(8)
-    PST_SPMM_CASE(9) PST_SPMM_CASE(10) PST_SPMM_CASE(11) PST_SPMM_CASE(12)
-    PST_SPMM_CASE(13) PST_SPMM_CASE(14) PST_SPMM_CASE(15) PST_SPMM_CASE(16)
-  }
-#undef PST_SPMM_CASE
+  const int bi = (int)b, D = (int)n_offsets, ki = (int)k;
+  // row capacities 1, 2, 4, 8, 16: rows past k are masked
+  if (ki == 1)
+    spmm_rows<T, 1>(planes, offsets, v, out, nb, nb_pad, bi, D, ki, s);
+  else if (ki <= 2)
+    spmm_rows<T, 2>(planes, offsets, v, out, nb, nb_pad, bi, D, ki, s);
+  else if (ki <= 4)
+    spmm_rows<T, 4>(planes, offsets, v, out, nb, nb_pad, bi, D, ki, s);
+  else if (ki <= 8)
+    spmm_rows<T, 8>(planes, offsets, v, out, nb, nb_pad, bi, D, ki, s);
+  else
+    spmm_rows<T, 16>(planes, offsets, v, out, nb, nb_pad, bi, D, ki, s);
   return (int)cudaGetLastError();
 }
 

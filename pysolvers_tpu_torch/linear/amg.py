@@ -320,7 +320,8 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                            dtype=None, device=None, mesh=None,
                            matrix_format: str = "auto",
                            fine_A_dev=None) -> DeviceHierarchy:
-    """Lower the host hierarchy onto ``device`` (None: the default device).
+    """Lower the host hierarchy onto ``device`` (None: the current CUDA
+    device).
 
     ``smoother``: "auto" (default — "gs" on the CPU for reference parity,
     "jacobi" on CUDA, where the level-scheduled trisolve is a chain of

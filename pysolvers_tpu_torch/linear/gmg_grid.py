@@ -177,7 +177,7 @@ def build_grid_hierarchy(A: Optional[HostCSR], num_levels: int,
                          galerkin: str = "host",
                          device=None) -> GridHierarchy:
     """Galerkin hierarchy (gmg.build_gmg_hierarchy) lowered as DIA
-    stencils on ``device`` (None: the default device).  Smoothers:
+    stencils on ``device`` (None: the current CUDA device).  Smoothers:
     "jacobi" (ω=2/3) or "chebyshev" (GS needs triangular solves — use the
     sparse executor for that).
 

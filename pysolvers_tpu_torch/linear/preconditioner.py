@@ -7,7 +7,8 @@ left-only / right-only / identity variants — and the deferred factory
 
 A ``Preconditioner`` is a pair of apply functions over device tensors;
 ``form`` runs the host setup phase and puts the state on ``device`` (the
-solver passes its own; ``None`` means ``torch.get_default_device()``).
+solver passes its own; ``None`` means the current CUDA device, and raises
+where there is none).
 
 ``ChebyshevPreconditionerType`` is the SpMV-only polynomial
 preconditioner; its host power iteration ``estimate_lmax`` is copied

@@ -6,8 +6,14 @@ inside a kernel, gather the right values?  (On the TPU, int8 indices did
 not, so the JAX package kept int32 lane indices.)
 
 * ``lane_gather_probe(idx, x)`` — the wrapper: out[r, l] = x[r, idx[r, l]]
-  for an (rows, 128) int16 index table and float32 x.  A CPU tensor goes
-  to the twin; a CUDA tensor launches K7 or raises.
+  for an (rows, 128) int16 index table and float32 x.  A CPU tensor is
+  range-checked and goes to the twin; a CUDA tensor launches K7 or raises,
+  and nothing else: one launch, no host round trip.  K7 checks the range
+  on each lane itself; a lane outside [0, 128) reads nothing, yields 0 and
+  sets the device's out-of-range flag, which this module owns.
+* ``check_lane_indices(device)`` — reads and clears that flag (a host
+  sync), raising ValueError if it was set: call it where the host reads
+  the result anyway.
 * ``lane_gather_probe_torch`` — the plain twin (``torch.gather`` on the
   indices widened to int64).
 * ``probe_main(device)`` — the probe script's run: the same seeded inputs,
@@ -26,6 +32,9 @@ from . import _cuda_build
 lane_gather_probe_launches = 0
 
 _ENTRY = None
+# (1,) int32 out-of-range flag per CUDA device, set by K7, cleared by
+# check_lane_indices
+_BAD_LANES: dict = {}
 
 
 def lane_gather_probe_torch(idx: torch.Tensor, x: torch.Tensor
@@ -37,11 +46,36 @@ def _entry():
     global _ENTRY
     if _ENTRY is None:
         fn = _cuda_build.load("lane_gather_probe").lane_gather_probe
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _ENTRY = fn
     return _ENTRY
+
+
+def _bad_lanes(index: int) -> torch.Tensor:
+    """The out-of-range flag of CUDA device ``index``, made at first use."""
+    flag = _BAD_LANES.get(index)
+    if flag is None:
+        flag = _BAD_LANES[index] = torch.zeros(
+            1, dtype=torch.int32, device=torch.device("cuda", index))
+    return flag
+
+
+def check_lane_indices(device) -> None:
+    """Raise ValueError if a K7 launch on ``device`` since the last check
+    met a lane index outside [0, 128); clears the flag.  Reads it back, so
+    it waits for those launches."""
+    device = torch.device(device)
+    flag = _BAD_LANES.get(device.index if device.index is not None
+                          else torch.cuda.current_device())
+    if flag is None:
+        return
+    bad = int(flag.item())
+    flag.zero_()
+    if bad:
+        raise ValueError("lane indices must lie in [0, 128): a K7 launch met "
+                         "one outside (those lanes gathered nothing)")
 
 
 def lane_gather_probe(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -56,16 +90,20 @@ def lane_gather_probe(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if idx.device != x.device:
         raise ValueError(f"idx is on {idx.device}, x on {x.device}")
     if x.device.type == "cpu":
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= 128):
+            raise ValueError("lane indices must lie in [0, 128)")
         return lane_gather_probe_torch(idx, x)
     if x.device.type != "cuda":
         raise ValueError(f"the probe runs on CPU or CUDA, not {x.device}")
-    if int(idx.min()) < 0 or int(idx.max()) >= 128:
-        raise ValueError("lane indices must lie in [0, 128)")
     idx, x = idx.contiguous(), x.contiguous()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _entry()(idx.data_ptr(), x.data_ptr(), out.data_ptr(),
-                      idx.shape[0], torch.cuda.current_stream().cuda_stream)
+    dev = x.device.index
+    # a one-tile call is all host time: K7 switches to x's device itself,
+    # and the raw stream handle (the lookup torch's generated kernels use)
+    # spares a device context and a Stream object per call
+    rc = _entry()(idx.data_ptr(), x.data_ptr(), out.data_ptr(),
+                  _bad_lanes(dev).data_ptr(), idx.shape[0], dev,
+                  torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"K7 (lane_gather_probe) launch failed: CUDA "
                            f"error {rc}")
@@ -82,5 +120,7 @@ def probe_main(device) -> float:
     idx = rng.integers(0, 128, size=(8, 128)).astype(np.int16)
     out = lane_gather_probe(torch.from_numpy(idx).to(device),
                             torch.from_numpy(x).to(device))
+    if torch.device(device).type == "cuda":
+        check_lane_indices(device)
     want = np.take_along_axis(x, idx.astype(np.int64), axis=1)
     return float(np.abs(out.cpu().numpy() - want).max())

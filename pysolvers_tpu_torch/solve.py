@@ -83,10 +83,11 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
           method: str = "auto", precond: str = "auto",
           precision: str = "native", detect_blocks: bool = True,
           device=None, **solver_kwargs) -> SolveStatus:
-    """Solve A x = b on ``device`` (None: ``torch.get_default_device()``;
-    a BdiaMatrix solves on its own device).  Returns a SolveStatus whose
-    ``soln`` is a tensor on that device, in the caller's (node-major)
-    ordering.
+    """Solve A x = b on ``device`` (None: the current CUDA device, and a
+    RuntimeError where there is none — pass ``device="cpu"`` to solve on
+    the CPU; a BdiaMatrix solves on its own device).  Returns a
+    SolveStatus whose ``soln`` is a tensor on that device, in the caller's
+    (node-major) ordering.
 
     ``A``: a HostCSR, a dense 2-D ndarray or a BdiaMatrix.  ``b``: (n,);
     (n, k) on the block-DIA lane, which solves the k columns in lockstep

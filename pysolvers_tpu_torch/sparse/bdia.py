@@ -17,7 +17,8 @@ The numpy pack is the JAX package's line for line, so both give the same
 planes bit for bit, including the ``row_tile`` rule for the padded length
 ``nb_pad`` (the kernels read only ``i < nb``; the rule is kept so that the
 packs match).  Planes and a device int32 copy of the offsets live on the
-matrix's ``device`` (None: ``torch.get_default_device()``).
+matrix's ``device`` (None: the current CUDA device; it raises where there
+is none).
 """
 from __future__ import annotations
 

@@ -470,7 +470,7 @@ class BwsMatrix:
     def from_numpy(delta, data, lidx, perm, iperm, base, shape, win_blocks,
                    group_rows, s_classes, gt, fast_select=False, dtype=None,
                    device=None) -> "BwsMatrix":
-        """Upload numpy tables to ``device`` (None: the default device);
+        """Upload numpy tables to ``device`` (None: the current CUDA device);
         ``dtype`` casts the values (None keeps theirs)."""
         device = resolve_device(device)
 

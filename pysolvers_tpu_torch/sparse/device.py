@@ -8,8 +8,8 @@ Port of ``pysolvers_tpu/sparse/device.py``.  Two formats:
 * ``EllMatrix`` — padded ELLPACK: ``data``/``cols`` of shape (n_rows_pad, k),
   padding slots ``col = n_cols`` with ``data = 0``.  Plain torch gather SpMV.
 
-Every constructor takes an explicit ``device``; ``None`` means
-``torch.get_default_device()``.
+Every constructor takes a ``device``; ``None`` means the current CUDA
+device and raises where there is none (``resolve_device``).
 
 Not ported: ``DiaTiled`` (the TPU kernel's (D, n_tiles, tile) tiling — K1
 reads the (D, ld) table as packed), the 262144-row padding of the TPU grid
@@ -33,8 +33,16 @@ def _round_up(x: int, m: int) -> int:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means the default device."""
-    return torch.get_default_device() if device is None else torch.device(device)
+    """``device`` as a torch.device; None means the current CUDA device.
+
+    Without a CUDA device, None raises: the port runs on the card unless
+    the caller asks for the CPU (``device="cpu"``) by name."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def same_device(a, b) -> bool:

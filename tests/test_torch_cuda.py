@@ -11,8 +11,9 @@ rounds product and sum separately; both add the D terms in offset order.
 K2/K3 against their twin, relative to max|y|: 1e-5 in f32 and 1e-12 in
 f64 — the kernel sums each lane over the segments and then the slots of a
 row by warp shuffles, the twin in torch's reduction order.  K4/K5 against
-their twins: K1's tolerances — both add the (d, q) terms in the same
-order, the kernels with FMAs.  K6 against its twin: K1's tolerances, for
+their twins: K1's tolerances — K4 adds the (d, q) terms in the twin's
+order, K5 in (q, d) order (a reordering of D·b terms, a few ulps of the
+partial sums), both with FMAs.  K6 against its twin: K1's tolerances, for
 the same reason (both add the D terms in pair order).  K7 is a pure
 gather and must be bit-exact.
 """
@@ -252,8 +253,31 @@ def test_k7_probe_is_bit_exact(cuda):
                                   torch.from_numpy(x).to(cuda))
     torch.cuda.synchronize()
     assert probe.lane_gather_probe_launches == before + 1
+    probe.check_lane_indices(cuda)           # every index was in range
     want = np.take_along_axis(x, idx.astype(np.int64), axis=1)
     assert np.array_equal(out.cpu().numpy(), want)
+
+
+def test_k7_reports_an_out_of_range_index_at_the_read_point(cuda):
+    """K7 does no host check per call: a bad lane reads nothing, yields 0
+    and sets the device flag, which check_lane_indices raises on (and
+    clears).  Never a silent gather from outside the row."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.random((8, 128)).astype(np.float32)).to(cuda)
+    idx = rng.integers(0, 128, size=(8, 128)).astype(np.int16)
+    idx[2, 5], idx[7, 127] = -1, 128
+    out = probe.lane_gather_probe(torch.from_numpy(idx).to(cuda), x)
+    with pytest.raises(ValueError, match=r"\[0, 128\)"):
+        probe.check_lane_indices(cuda)
+    probe.check_lane_indices(cuda)           # cleared by the read
+    out = out.cpu().numpy()
+    assert out[2, 5] == 0.0 and out[7, 127] == 0.0
+    ok = (idx >= 0) & (idx < 128)
+    want = np.take_along_axis(x.cpu().numpy(),
+                              np.where(ok, idx, 0).astype(np.int64), axis=1)
+    assert np.array_equal(out[ok], want[ok])
+    with pytest.raises(ValueError, match=r"\[0, 128\)"):   # CPU: eager
+        probe.lane_gather_probe(torch.from_numpy(idx), x.cpu())
 
 
 def test_pcg_bws_on_cuda_matches_cpu(cuda):
@@ -287,6 +311,8 @@ BDIA_CASES = {
     "b5_pad_gt_nb": (4099, 5, (-64, -1, 0, 1, 64), 16384),
     "b2_reach_past_both_ends": (777, 2, (-900, -776, 0, 776, 900), 777),
     "b1": (5000, 1, (-3, 0, 7), 5120),
+    # K5's widest register tile: at k = 16 the 8 dofs split into 2 groups
+    "b8_register_pressure": (2000, 8, (-45, -1, 0, 1, 45), 2048),
     "b11_two_groups": (300, 11, (-2, 0, 2), 384),
 }
 
@@ -312,11 +338,7 @@ def test_k4_matches_twin(cuda, case, dtype):
     assert _rel(y, spmv.bdia_spmv_torch(A, x)) <= RTOL[dtype]
 
 
-@pytest.mark.parametrize("k", [1, 5, 16, 20])
-@pytest.mark.parametrize("case", sorted(BDIA_CASES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k5_matches_twin(cuda, case, dtype, k):
-    A = _bdia(case, dtype, cuda)
+def _check_k5(A, k, dtype, cuda):
     V = torch.randn(k, A.n_cols, dtype=dtype, device=cuda)
     before = spmv.bdia_spmm_launches
     Y = spmv.bdia_spmm_rows(A, V)
@@ -325,6 +347,101 @@ def test_k5_matches_twin(cuda, case, dtype, k):
     assert spmv.bdia_spmm_launches == before + (k + 15) // 16
     assert Y.shape == (k, A.n_rows)
     assert _rel(Y, spmv.bdia_spmm_torch(A, V)) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 16, 20])
+@pytest.mark.parametrize("case", sorted(BDIA_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_matches_twin(cuda, case, dtype, k):
+    _check_k5(_bdia(case, dtype, cuda), k, dtype, cuda)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_on_the_block_jacobi_operator(cuda, dtype, k):
+    """The lockstep solve's other K5 operand: the D = 1 block-Jacobi
+    inverse of the vector Laplacian."""
+    from pysolvers_tpu_torch.linear.block_precond import (
+        block_jacobi_bdia_matrix)
+    H = pt.fd_vector_laplacian_2d(40, b=5, coupling=0.2)
+    M = block_jacobi_bdia_matrix(pt.BdiaMatrix.from_host_csr(H, 5,
+                                                             device=cuda))
+    assert M.offsets == (0,)
+    _check_k5(M.astype(str(dtype).split(".")[1]), k, dtype, cuda)
+
+
+def _sync_free_calls(name, cuda):
+    """One wrapper call of each kernel, its inputs made beforehand; returns
+    (call, the launch counter's module and name, launches per call)."""
+    from pysolvers_tpu_torch.ops import grid_spmv
+    if name == "dia_spmv":
+        A = DiaMatrix.from_host_csr(_banded(*CASES["square_5pt"]),
+                                    device=cuda)
+        x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+        return lambda: spmv.dia_spmv(A, x), (spmv, "dia_spmv_launches"), 1
+    if name.startswith("bws_spmv"):
+        H, A = _bws_pack("multi_class", torch.float64, cuda)
+        if name == "bws_spmv_without_classes":
+            A = dataclasses.replace(A, s_classes=())
+            counter, n = "bws_spmv_launches", 1
+        else:
+            assert tbws.use_classes(A)
+            counter, n = "bws_spmv_classes_launches", len(A.s_classes)
+        x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+        return lambda: tbws.bws_spmv(A, x), (tbws, counter), n
+    if name.startswith("bdia"):
+        A = _bdia("b5_pad_gt_nb", torch.float64, cuda)
+        if name == "bdia_spmv":
+            x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+            return (lambda: spmv.bdia_spmv(A, x),
+                    (spmv, "bdia_spmv_launches"), 1)
+        V = torch.randn(20, A.n_cols, dtype=torch.float64, device=cuda)
+        return (lambda: spmv.bdia_spmm_rows(A, V),
+                (spmv, "bdia_spmm_launches"), 2)
+    if name == "grid_dia_spmv":
+        A = _grid("random_300x1100_D9", torch.float64, cuda)
+        x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+        return (lambda: grid_spmv.grid_dia_spmv(A, x),
+                (grid_spmv, "grid_dia_spmv_launches"), 1)
+    idx = torch.randint(0, 128, (8, 128), dtype=torch.int16, device=cuda)
+    x = torch.rand(8, 128, dtype=torch.float32, device=cuda)
+    return (lambda: probe.lane_gather_probe(idx, x),
+            (probe, "lane_gather_probe_launches"), 1)
+
+
+@pytest.mark.parametrize("name", [
+    "dia_spmv", "bws_spmv_with_classes", "bws_spmv_without_classes",
+    "bdia_spmv", "bdia_spmm_rows", "grid_dia_spmv", "lane_gather_probe"])
+def test_wrapper_never_syncs(cuda, name):
+    """A kernel wrapper launches and returns: no host round trip, so a
+    solver loop of products never waits on the card (torch raises on any
+    synchronising call in sync-debug mode "error")."""
+    call, (mod, counter), n = _sync_free_calls(name, cuda)
+    torch.cuda.synchronize()
+    before = getattr(mod, counter)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert getattr(mod, counter) == before + 2 * n
+    probe.check_lane_indices(cuda)
+
+
+def test_solve_defaults_to_the_card(cuda):
+    """No device argument: solve() runs on the current CUDA device, K1
+    included."""
+    H = pt.problems.fd_laplacian_2d(64)
+    b = H.matvec(np.random.default_rng(8).random(H.shape[0]))
+    spmv.dia_spmv_launches = 0
+    # "auto" would pick IC at this size, which is not ported yet
+    st = pt.solve(H, b, precond="amg", tau=1e-10)
+    assert st.success and st.soln.device.type == "cuda"
+    assert spmv.dia_spmv_launches > 0
+    x = st.soln.cpu().numpy()
+    assert np.linalg.norm(b - H.matvec(x)) / np.linalg.norm(b) <= 1e-9
 
 
 def test_k4_k5_on_cuda_never_run_the_twins(cuda, monkeypatch):
