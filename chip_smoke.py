@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (pysolvers_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bws-sweep [THREADS,UNROLL,EVICT_FIRST ...]
 
 Run from the root of a checkout.  It imports nothing of JAX and builds the
 port's CUDA kernels from the checkout's sources.  Phases, one line each or
@@ -26,13 +27,15 @@ more (any failure raises and the script exits non-zero):
 6. K7, the lane-index probe of ``benchmarks/probe_idx16.py``, bit-exact
    against numpy, timed beside its twin and ``torch.gather``;
 7. the unstructured main path: PCG + SA-AMG (4 levels, every level
-   operator and transfer packed as BWS) on the RCM-reordered
-   fem_poisson_2d_unstructured(1025, seed=3) in f64, n = 1,048,576, with
-   the caller's BWS pack as the fine operator; checked on the host;
-8. K3 (as the path takes it) and K2 (forced, ``s_classes=()``) against
-   their twin on every operator of that hierarchy, f32 and f64, plus a
-   graph_laplacian_rgg operator at n = 1e6; CUDA-event times of both (and
-   of a torch CSR product on the fine operator);
+   operator and transfer packed as BWS, each with its device CSR) on the
+   RCM-reordered fem_poisson_2d_unstructured(1025, seed=3) in f64, n =
+   1,048,576, with the caller's BWS pack as the fine operator; checked on
+   the host; one K2 launch per BWS product and no K3 launch; the layout's
+   device bytes; the median of five frozen re-solves;
+8. K2 (``bws_spmv``) against its twin on every operator of that
+   hierarchy, f32 and f64, and K3 (``bws_spmv_by_class``) on the fine
+   operator, plus both on a graph_laplacian_rgg operator at n = 1e6;
+   CUDA-event times (and of a torch CSR product on the fine operator);
 9. K4 (``csrc/bdia_spmv.cu``) and K5 (the same source, k = 1, 8, 16 and 20
    right-hand sides) against their twins, f32 and f64: the block lane's
    full-width operator, fd_vector_laplacian_2d(648, b=5, coupling=0.2)
@@ -62,12 +65,22 @@ more (any failure raises and the script exits non-zero):
 14. the object-oriented GMG entry points at ``run_large.py``'s m = 1023
    (6 levels, f64, tau = 1e-10, no K6 at this width): PCG with
    ``GMGPreconditionerType`` (galerkin "host" and "device") and
-   ``GMGVCycle(matrix_format="grid")``, checked on the host with scipy.
+   ``GMGVCycle(matrix_format="grid")``, checked on the host with scipy;
+15. the unstructured path under ``torch.profiler`` (last, since a
+   profiler session may leave host overhead on later launches): phase
+   7's re-solve (busy share, K2's share, launches per iteration) and the
+   device time alone of K2, K3 and the CSR call on its fine operator.
 
 Then one JSON line on the kernels (each with its bound from the bytes it
 must move and the operations it must do, and the time of the library
 call, which the port itself never makes), and last the device record
 ``{"ok": true, "device": {...}}``.
+
+``--bws-sweep`` runs none of that: it builds copies of
+``csrc/bws_spmv.cu`` with other sizes (threads per block, loads in flight
+per thread, evict-first loads of values and indices; by default
+``BWS_SWEEP``, the kept design first), checks each against the twin and
+times it against the others and the CSR product (``bws_sweep``).
 """
 import dataclasses
 import json
@@ -92,10 +105,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (d, q): a reordering, again a few ulps of the partial sums) and K6.
 TOL = {"float32": 1e-6, "float64": 1e-13}
 # K2/K3 against their twin, as max|y_kernel - y_twin| / max|y_twin|.  The
-# kernel sums each lane over the segments (FMA) and then the slots of a
-# row by warp shuffles; the twin multiplies, then sums in torch's
-# reduction order.  Up to ~100 segment terms per lane on the widest
-# restrictor, a few ulps each, relative to max|y|.
+# kernels sum a row's products over the device CSR (in column order, or
+# strided over up to 256 threads and then by shuffles); the twin sums the
+# pack's segments in torch's reduction order.  Up to a few hundred terms
+# per row on the widest restrictor, a few ulps each, relative to max|y|.
 BWS_TOL = {"float32": 1e-5, "float64": 1e-12}
 # host-checked ||b - A x|| / ||b|| after a solve at tau = 1e-10
 RESID_LIMIT = 1e-9
@@ -122,6 +135,10 @@ GRID_ERR_LIMIT = 1e-6
 OO_GMG_M, OO_GMG_LEVELS = 1023, 6
 KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv",
            "grid_dia_spmv")
+# K2's sizes for --bws-sweep: threads per block, loads in flight per
+# thread, evict-first loads (1) or plain ones (0); the kept design first
+BWS_SWEEP = ("256,4,1", "256,4,0", "128,4,1", "512,4,1", "256,8,1",
+             "256,2,1", "256,2,0")
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
 # at 3.35 TB/s; 67 TFLOP/s in f32 and 34 TFLOP/s in f64 outside the
 # tensor cores
@@ -154,7 +171,9 @@ def time_pair(kernel, plain, library=None, runs=21, calls=10, warmup=3):
     runs, each ``calls`` back-to-back calls between two CUDA events (so
     launch latency overlaps the previous call, as in a solver loop),
     timed in turns (plain, kernel, library, library, kernel, plain, ...)
-    after a warm-up.  Returns (kernel, plain, library or None)."""
+    after a warm-up.  Each run starts with one untimed call, so that the
+    start event is not recorded on an idle card while the host prepares
+    the first timed call.  Returns (kernel, plain, library or None)."""
     import torch
     fns = {"plain": plain, "kernel": kernel}
     if library is not None:
@@ -169,6 +188,7 @@ def time_pair(kernel, plain, library=None, runs=21, calls=10, warmup=3):
         for name, fn in (order if r % 2 == 0 else order[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            fn()
             start.record()
             for _ in range(calls):
                 fn()
@@ -369,9 +389,16 @@ def check_k1(device):
 
 
 def device_tensors(op):
-    """The tensors of a DiaMatrix, EllMatrix or BwsMatrix."""
+    """The tensors of a DiaMatrix, EllMatrix or BwsMatrix (its device CSR
+    included)."""
     import torch
-    return [v for v in vars(op).values() if isinstance(v, torch.Tensor)]
+    out = []
+    for v in vars(op).values():
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out += device_tensors(v)
+    return out
 
 
 def check_solution(tag, H, b, x_star, st, device, err_limit=1e-6):
@@ -571,8 +598,9 @@ def probe_k7(device):
 def unstructured_path(device, m=1025, num_levels=4):
     """Phase 7: benchmarks/unstructured_amg.py's pipeline (RCM-reordered
     FEM matrix, x* from default_rng(7), b = A x*) through the factory API
-    with a (host, BwsMatrix) pair, native f64.  Returns the problem, the
-    solver (hierarchy inside) and the launches."""
+    with a (host, BwsMatrix) pair, native f64.  Returns the problem (Ap,
+    A_bws, b), the solver (hierarchy inside), the launches and the median
+    re-solve seconds and iterations."""
     import torch
     import pysolvers_tpu_torch as pt
     from pysolvers_tpu_torch.sparse.bws import BwsMatrix
@@ -590,8 +618,9 @@ def unstructured_path(device, m=1025, num_levels=4):
                                     device=device)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    num_iters = 2
     solver = pt.PCG(pt.CommonSolverArgs(maxiter=500, tau=1e-10),
-                    precond=pt.AMG(num_iters=2, num_levels=num_levels,
+                    precond=pt.AMG(num_iters=num_iters, num_levels=num_levels,
                                    galerkin="host", matrix_format="bws"),
                     device=device).make_solver()
     Timer.reset()
@@ -620,17 +649,28 @@ def unstructured_path(device, m=1025, num_levels=4):
                          "the device")
     resid, err = check_solution("unstructured path", Ap, b, x_star, st,
                                 device, UNSTRUCTURED_ERR_LIMIT)
-    # the path rule sends the operators with paying segment classes to K3
-    # and the rest (here the coarsest prolongator) to K2
-    if counts["K2"] <= 0 or counts["K3"] <= 0:
-        raise SystemExit(f"the unstructured path did not launch both K2 "
-                         f"and K3: {counts}")
+    # every BWS product is one K2 launch over the device CSR; the class
+    # entry K3 has no padded segments to skip there and is on no path
+    products = bws_products(h, A_bws, st.iters, num_iters)
+    if counts["K2"] != products or products <= 0 or counts["K3"]:
+        raise SystemExit(f"the unstructured path made {products} BWS "
+                         f"products and launched {counts}")
+    ops = {id(op): op for op in [A_bws] + [o for L in levels for o in (
+        L.A_dev, L.P_dev, L.R_dev)] if isinstance(op, BwsMatrix)}
+    csr_bytes = sum(op.csr.nbytes for op in ops.values())
+    pack_bytes = sum(t.numel() * t.element_size() for op in ops.values()
+                     for t in (op.data, op.lidx, op.delta))
     solver.freeze_matrix()
     solver.freeze_prec()
-    t0 = time.perf_counter()
-    st2 = solver.solve((Ap, A_bws), b)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
+    # the host sets this path's pace, and a shared host varies: the median
+    # of five re-solves
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        st2 = solver.solve((Ap, A_bws), b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    solve_s = statistics.median(walls)
     check_solution("unstructured re-solve", Ap, b, x_star, st2, device,
                    UNSTRUCTURED_ERR_LIMIT)
     phase(7, f"PCG+AMG(num_iters=2, num_levels={num_levels}, "
@@ -646,10 +686,35 @@ def unstructured_path(device, m=1025, num_levels=4):
              f"{first_s:.3f} s = SA hierarchy "
              f"{Timer.total('amg.host_hierarchy'):.3f} s + device lowering "
              f"{Timer.total('amg.device_lower'):.3f} s (of it BWS packs "
-             f"{Timer.total('amg.bws_pack'):.3f} s) + PCG; frozen re-solve "
-             f"{solve_s:.3f} s ({st2.iters} iters); launches {counts} | "
+             f"{Timer.total('amg.bws_pack'):.3f} s, device CSR included) + "
+             f"PCG; frozen re-solve {1e3 * solve_s:.3f} ms, the median of "
+             f"{[round(1e3 * w, 3) for w in walls]} ({st2.iters} iters); "
+             f"BWS products {products}, launches {counts} | "
              f"{card_line()}")
-    return Ap, A_bws, solver, counts
+    phase(7, f"device bytes of the {len(ops)} BWS operators: CSR layouts "
+             f"{csr_bytes / 1e6:.1f} MB (fine operator "
+             f"{A_bws.csr.nbytes / 1e6:.1f} MB, {A_bws.csr.n_blocks} row "
+             f"blocks), pack tables {pack_bytes / 1e6:.1f} MB")
+    return dict(Ap=Ap, A_bws=A_bws, solver=solver, counts=counts, b=b,
+                solve_s=solve_s, iters=st2.iters)
+
+
+def bws_products(h, A_fine, iters, num_iters):
+    """The BWS products of a PCG solve on A_fine preconditioned by
+    ``num_iters`` V-cycles of h: one product with A_fine and one
+    preconditioner apply at the start and in every iteration
+    (``krylov.cg_solve``); a V-cycle applies each level's A nu_pre +
+    nu_post + 1 times and its R and P once (``amg.v_cycle``, Jacobi)."""
+    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+
+    def bws(op):
+        return int(isinstance(op, BwsMatrix))
+    if h.smoother != "jacobi":
+        raise SystemExit(f"the unstructured path smooths by {h.smoother}, "
+                         f"not jacobi")
+    per_cycle = sum((h.nu_pre + h.nu_post + 1) * bws(L.A_dev) + bws(L.R_dev)
+                    + bws(L.P_dev) for L in h.levels[1:])
+    return (iters + 1) * (bws(A_fine) + num_iters * per_cycle)
 
 
 def bws_operators(Ap, A_bws, solver, num_levels):
@@ -676,13 +741,40 @@ def bws_operators(Ap, A_bws, solver, num_levels):
     return [o for o in ops if isinstance(o[2], BwsMatrix)]
 
 
-def check_bws(name, H, A, x, runs, library=False):
-    """One K2 or K3 comparison and timing line (with ``library``, the CSR
-    of H in pack order timed beside it); returns the numbers."""
+def device_ms(fn, calls=20, tries=3):
+    """Device milliseconds per call of fn: the CUDA kernels' self time
+    under torch.profiler over ``calls`` calls, host time excluded.  Every
+    call launches a kernel, so a trace with fewer kernels than calls lost
+    events and is taken again, up to ``tries`` times (then None)."""
+    for _ in range(tries):
+        _, dev_s, rows = profile_call(lambda: [fn() for _ in range(calls)])
+        if sum(c for _, k, c in rows if not k.startswith("Mem")) >= calls:
+            return 1e3 * dev_s / calls
+    return None
+
+
+def host_us(fn, calls=20):
+    """Host microseconds per call of fn: the enqueue of ``calls`` calls
+    after a synchronize, without waiting for the card (the queue does not
+    fill at this count)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * wall / calls
+
+
+def check_bws(name, H, A, x, runs, entry="K2", library=False):
+    """One K2 (``bws_spmv``) or K3 (``bws_spmv_by_class``) comparison and
+    timing line (with ``library``, the CSR of H in pack order timed beside
+    it, and the host time per call of both); returns the numbers."""
     import torch
     from pysolvers_tpu_torch.ops import bws_spmv
-    classes = bws_spmv.use_classes(A)
-    y = bws_spmv.bws_spmv(A, x)
+    fn = bws_spmv.bws_spmv if entry == "K2" else bws_spmv.bws_spmv_by_class
+    y = fn(A, x)
     y_ref = bws_spmv.bws_spmv_torch(A, x)
     torch.cuda.synchronize()
     abs_err = float((y - y_ref).abs().max())
@@ -698,33 +790,37 @@ def check_bws(name, H, A, x, runs, library=False):
         S = csr_of_host(H, A.dtype, x.device)
         lib, lib_err = try_library(lambda: S @ x)
         if lib is not None:
-            library_agrees(y, lib(), tol, f"K2/K3 {name} {dt}")
+            library_agrees(y, lib(), tol, f"{entry} {name} {dt}")
     ms, plain_ms, lib_ms = time_pair(
-        lambda: bws_spmv.bws_spmv(A, x), lambda: bws_spmv.bws_spmv_torch(A, x),
-        lib, runs=runs)
+        lambda: fn(A, x), lambda: bws_spmv.bws_spmv_torch(A, x), lib,
+        runs=runs)
     if library:
         lib_line = f" | {lib_text('CSR @ x', lib_ms, lib_err)}"
-    slots = A.classed_slots if classes else A.nnz_slots
+        lib_line += (f" || host time per call {entry} "
+                     f"{host_us(lambda: fn(A, x)):.1f} us, CSR @ x "
+                     f"{lib and host_us(lib)} us")
+    L = A.csr
     size = A.data.element_size()
-    # the pack's own bytes (padded slots included): a rate, not a bound
-    pack_bytes = ((size + 4) * slots + 4 * slots // 128
-                  + size * (A.n_cols + A.n_rows))
+    # the bytes the layout makes the kernel read and write: a rate, not a
+    # bound (int64 row pointers past 2^31 nonzeros; K3 reads its block list)
+    read_bytes = ((size + 4) * L.nnz + L.indptr.element_size()
+                  * (A.n_rows + 1) + 4 * (L.n_blocks + 1)
+                  + size * (A.n_cols + A.n_rows)
+                  + (4 * L.n_blocks if entry == "K3" else 0))
     # the bound is the operator's, one for K2 and K3: the CSR minimum
     # (values and int32 column indices, row pointers, x read, y written)
-    nbytes = ((size + 4) * H.nnz + 4 * (A.n_rows + 1)
+    nbytes = ((size + 4) * L.nnz + 4 * (A.n_rows + 1)
               + size * (A.n_cols + A.n_rows))
-    bnd = bound(nbytes, 2 * H.nnz, dt)
-    kernel = "K3" if classes else "K2"
-    phase(8, f"{kernel} {name} {dt} shape={A.shape} gr={A.group_rows} "
-             f"gt={A.gt} S={A.n_segments} W={A.win_blocks} classes="
-             f"{[(s, len(i)) for s, i in A.s_classes]} slots={slots} "
-             f"fill={H.nnz / slots:.3f} rel_err={rel:.3e} (tol {tol:g}) "
-             f"{kernel} {ms:.4f} ms {H.nnz / (ms * 1e-3):.4e} nnz/s "
-             f"pack {pack_bytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
-             f"{bnd['bound_ms']:.4f} ms | twin {plain_ms:.4f} "
-             f"ms {H.nnz / (plain_ms * 1e-3):.4e} nnz/s{lib_line}")
+    bnd = bound(nbytes, 2 * L.nnz, dt)
+    phase(8, f"{entry} {name} {dt} shape={A.shape} nnz={L.nnz} row blocks="
+             f"{L.n_blocks} classes={[(s, len(i)) for s, i in A.s_classes]} "
+             f"rel_err={rel:.3e} (tol {tol:g}) {entry} {ms:.4f} ms "
+             f"{L.nnz / (ms * 1e-3):.4e} nnz/s layout "
+             f"{read_bytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
+             f"{bnd['bound_ms']:.4f} ms ({100 * bnd['bound_ms'] / ms:.1f} %) "
+             f"| twin {plain_ms:.4f} ms{lib_line}")
     if not ok:
-        raise SystemExit(f"{kernel} disagrees with its twin on {name} {dt}: "
+        raise SystemExit(f"{entry} disagrees with its twin on {name} {dt}: "
                          f"rel {rel:.3e} > {tol:g}")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **bnd,
                 **library_fields("torch.sparse_csr_tensor @ x (pack order)",
@@ -733,7 +829,9 @@ def check_bws(name, H, A, x, runs, library=False):
 
 def check_bws_kernels(ops, device, rgg_n=1_000_000):
     """Phase 8.  Returns the kernels-record numbers of K2 and K3 at the
-    main path's fine operator in f64."""
+    main path's fine operator in f64 (K3's with its launches in one product
+    by class there: no solve path launches it), and the fine operator's
+    f32 pack."""
     import torch
     from pysolvers_tpu_torch.ops import bws_spmv
     from pysolvers_tpu_torch.problems import graph_laplacian_rgg
@@ -753,19 +851,20 @@ def check_bws_kernels(ops, device, rgg_n=1_000_000):
             x = torch.as_tensor(xh, dtype=dt, device=device)
             main = i == 0 and dt == torch.float64
             runs = 21 if main else 5
-            if bws_spmv.use_classes(A):
-                r = check_bws(name, H, A, x, runs, library=i == 0)
-                if main:
-                    rec["K3"] = r
-            r = check_bws(name + " (classes stripped)", H,
-                          dataclasses.replace(A, s_classes=()), x, runs,
-                          library=i == 0)
+            r = check_bws(name, H, A, x, runs, library=i == 0)
             if main:
                 rec["K2"] = r
+            if i == 0 and dt == torch.float32:
+                fine32 = A
+            if i == 0:
+                r = check_bws(name, H, A, x, runs, "K3", library=True)
+                if main:
+                    reset_launches()
+                    bws_spmv.bws_spmv_by_class(A, x)
+                    torch.cuda.synchronize()
+                    rec["K3"] = dict(
+                        r, launches_per_by_class_call=launches()["K3"])
             del A, x
-    if set(rec) != {"K2", "K3"}:
-        raise SystemExit(f"the fine operator did not run both K2 and K3: "
-                         f"{sorted(rec)}")
     t0 = time.perf_counter()
     G = graph_laplacian_rgg(rgg_n, seed=1)
     gen_s = time.perf_counter() - t0
@@ -776,12 +875,11 @@ def check_bws_kernels(ops, device, rgg_n=1_000_000):
         phase(8, f"graph_laplacian_rgg({rgg_n}) not checked: its pack "
                  f"overflows the BWS window ({e})")
     else:
-        xh = rng.standard_normal(rgg_n)
-        for A in (G64, dataclasses.replace(G64, s_classes=())):
+        x = torch.as_tensor(rng.standard_normal(rgg_n), device=device)
+        for entry in ("K2", "K3"):
             check_bws(f"graph_laplacian_rgg({rgg_n}) RCM (generated in "
-                      f"{gen_s:.1f} s)", G, A,
-                      torch.as_tensor(xh, device=device), 5)
-    return rec
+                      f"{gen_s:.1f} s)", G, G64, x, 5, entry)
+    return rec, fine32
 
 
 def block_operator(device):
@@ -1288,6 +1386,52 @@ def grid_path(fine, device, m=GRID_M, num_levels=GRID_LEVELS):
     return counts
 
 
+def profile_unstructured(path, fine32, rec):
+    """Phase 15, last because a profiler session can leave host overhead
+    on every later launch: the phase-7 re-solve under torch.profiler
+    (busy share, K2's share and launches per iteration), then the device
+    time alone of K2, K3 and the CSR call on the fine operator, f64 and
+    f32.  Adds the f64 device times to K2's and K3's records."""
+    import torch
+    from pysolvers_tpu_torch.ops import bws_spmv
+    Ap, A_bws, solver, b = (path[k] for k in ("Ap", "A_bws", "solver", "b"))
+    wall, dev_s, rows = profile_call(lambda: solver.solve((Ap, A_bws), b))
+    if not rows:
+        phase(15, "profiled re-solve: the profiler saw no device time (busy "
+                  "share not measured)")
+        return
+    k2_us = sum(us for us, k, _ in rows if "bws_spmv" in k)
+    k2_n = sum(c for _, k, c in rows if "bws_spmv" in k)
+    top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{c}"
+                    for us, k, c in rows[:6])
+    iters, solve_s = path["iters"], path["solve_s"]
+    phase(15, f"profiled unstructured re-solve: wall {1e3 * wall:.3f} ms, "
+              f"device {1e3 * dev_s:.3f} ms, busy {100 * dev_s / wall:.1f} % "
+              f"(of phase 7's median {1e3 * solve_s:.3f} ms: "
+              f"{100 * dev_s / solve_s:.1f} %); K2 {k2_us / 1e3:.3f} ms = "
+              f"{100 * k2_us / 1e6 / dev_s:.1f} % of device time, "
+              f"{k2_n / iters:.1f} K2 launches and "
+              f"{sum(r[2] for r in rows) / iters:.1f} device ops per "
+              f"iteration ({iters} iters); top device ops: {top}")
+    for A in (A_bws, fine32):
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            A.n_cols), dtype=A.dtype, device=A.device)
+        S = csr_of_host(Ap, A.dtype, A.device)
+        times = {name: device_ms(fn) for name, fn in (
+            ("K2", lambda: bws_spmv.bws_spmv(A, x)),
+            ("K3", lambda: bws_spmv.bws_spmv_by_class(A, x)),
+            ("CSR @ x", lambda: S @ x))}
+        dt = str(A.dtype).split(".")[1]
+        phase(15, f"device time alone per call (profiler, 20 calls), fine "
+                  f"operator {dt}: " + ", ".join(
+                      f"{k} {v} ms" for k, v in times.items()))
+        if A is A_bws:
+            for k in ("K2", "K3"):
+                rec[k].update(device_ms=times[k],
+                              library_device_ms=times["CSR @ x"])
+        del S, x
+
+
 def oo_gmg(device, m=OO_GMG_M, num_levels=OO_GMG_LEVELS):
     """Phase 14: the factory forms of GMG at run_large.py's m = 1023."""
     import torch
@@ -1328,6 +1472,117 @@ def oo_gmg(device, m=OO_GMG_M, num_levels=OO_GMG_LEVELS):
                   f"({st2.iters} iters); launches {counts} | {card_line()}")
 
 
+def build_bws_variant(spec):
+    """(spec, library, ptxas registers) of a copy of csrc/bws_spmv.cu with
+    the sizes of ``spec`` ("THREADS,UNROLL,EVICT_FIRST"), built under
+    _build/sweep."""
+    from pysolvers_tpu_torch.ops import _cuda_build
+    threads, unroll, evict = spec.split(",")
+    with open(os.path.join(_cuda_build.CSRC_DIR, "bws_spmv.cu")) as f:
+        src = f.read()
+    for old, new in (
+            ("constexpr int kThreads = 256;",
+             f"constexpr int kThreads = {threads};"),
+            ("constexpr int kUnroll = 4;", f"constexpr int kUnroll = {unroll};"),
+            ("return __ldcs(p);",
+             "return __ldcs(p);" if evict == "1" else "return *p;")):
+        if src.count(old) != 1:
+            raise SystemExit(f"bws_spmv.cu no longer holds {old!r}")
+        src = src.replace(old, new)
+    out = os.path.join(_cuda_build.BUILD_DIR, "sweep")
+    os.makedirs(out, exist_ok=True)
+    cu = os.path.join(out, f"bws_spmv_{spec.replace(',', '_')}.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    so = cu[:-3] + ".so"
+    proc = subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS,
+                           "-o", so, cu], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed for {spec}:\n{proc.stderr}")
+    regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers",
+                                              proc.stdout + proc.stderr)})
+    return spec, so, regs
+
+
+def bws_sweep(specs):
+    """K2's sizes against each other and the CSR product: every variant on
+    the unstructured path's fine operator (f64 and f32, the CSR call
+    beside it) and on graph_laplacian_rgg(1e6) (RCM, f64), over the
+    matrix's own device CSR and row blocks.  Each is checked against the
+    twin (``BWS_TOL``), then timed by the profiler (device time alone) and
+    by CUDA events (``time_pair``, in turns with the CSR call)."""
+    import ctypes
+    import torch
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.ops import bws_spmv
+    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(specs)) as pool:
+        built = list(pool.map(build_bws_variant, specs))
+    print(f"[sweep] built {len(built)} variants in "
+          f"{time.perf_counter() - t0:.1f} s; registers "
+          f"{[(s, r) for s, _, r in built]}", flush=True)
+    H = pt.problems.fem_poisson_2d_unstructured(1025, seed=3)
+    H = H.permute_symmetric(BwsMatrix._rcm_perm(H))
+    f64 = BwsMatrix.from_host_csr(H, dtype=np.float64, use_rcm=False,
+                                  device="cuda")
+    f32 = BwsMatrix.from_host_csr(H, dtype=np.float32, use_rcm=False,
+                                  group_rows=f64.group_rows, gt=f64.gt,
+                                  device="cuda")
+    G = BwsMatrix.from_host_csr(
+        pt.problems.graph_laplacian_rgg(1_000_000, seed=1),
+        dtype=np.float64, use_rcm=True, device="cuda")
+    dev = torch.cuda.current_device()
+    rng = np.random.default_rng(0)
+    for name, A, host in (("fine FEM", f64, H), ("fine FEM", f32, H),
+                          ("graph_laplacian_rgg(1e6) RCM", G, None)):
+        dt = str(A.dtype).split(".")[1]
+        L = A.csr
+        x = torch.as_tensor(rng.standard_normal(A.n_cols), dtype=A.dtype,
+                            device="cuda")
+        y_ref = bws_spmv.bws_spmv_torch(A, x)
+        size = A.data.element_size()
+        bnd = bound((size + 4) * L.nnz + 4 * (A.n_rows + 1)
+                    + size * (A.n_cols + A.n_rows), 2 * L.nnz, dt)["bound_ms"]
+        lib = lib_line = None
+        if host is not None:
+            S = csr_of_host(host, A.dtype, x.device)
+            lib = lambda: S @ x                                  # noqa: E731
+            lib_line = f"CSR @ x device {device_ms(lib)} ms"
+        for spec, so, _ in built:
+            fn = getattr(ctypes.CDLL(so), "bws_spmv_" + dt.replace(
+                "float", "f") + ("_i32" if L.indptr.dtype == torch.int32
+                                 else "_i64"))
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                           + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+            def call(fn=fn):
+                y = torch.empty(A.n_rows, dtype=A.dtype, device="cuda")
+                rc = fn(L.row_blocks.data_ptr(), L.n_blocks,
+                        L.indptr.data_ptr(), L.indices.data_ptr(),
+                        L.values.data_ptr(), x.data_ptr(), y.data_ptr(), dev,
+                        torch._C._cuda_getCurrentRawStream(dev))
+                if rc:
+                    raise SystemExit(f"{spec}: CUDA error {rc}")
+                return y
+            y = call()
+            torch.cuda.synchronize()
+            rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+            if not rel <= BWS_TOL[dt]:
+                raise SystemExit(f"{spec} {name} {dt}: rel {rel:.3e}")
+            ms, lib_ms, _ = time_pair(call, lib or call, runs=11)
+            d_ms = device_ms(call)
+            share = "" if d_ms is None else f" ({100 * bnd / d_ms:.1f} %)"
+            print(f"[sweep] {name} {dt} THREADS,UNROLL,EVICT_FIRST={spec} "
+                  f"rel_err={rel:.2e}: device {d_ms} ms{share}, events "
+                  f"{ms:.4f} ms; bound {bnd:.4f} ms"
+                  + (f" | {lib_line}, events {lib_ms:.4f} ms" if lib_line
+                     else ""), flush=True)
+    print(card_line(), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1339,6 +1594,9 @@ def main():
         raise SystemExit("pysolvers_tpu_torch is not this checkout's")
     card = card_line()
     print(card, flush=True)
+    if sys.argv[1:2] == ["--bws-sweep"]:
+        bws_sweep(sys.argv[2:] or BWS_SWEEP)
+        return
     phase(1, f"torch {torch.__version__} CUDA {torch.version.cuda} "
              f"device {torch.cuda.get_device_name(0)} "
              f"count {torch.cuda.device_count()}")
@@ -1349,11 +1607,10 @@ def main():
     front_end("cuda")
     rec_k7 = probe_k7("cuda")
     num_levels = 4
-    Ap, A_bws, solver, counts = unstructured_path(
-        "cuda", num_levels=num_levels)
-    rec_bws = check_bws_kernels(bws_operators(Ap, A_bws, solver, num_levels),
-                                "cuda")
-    del Ap, A_bws, solver
+    path = unstructured_path("cuda", num_levels=num_levels)
+    counts = path["counts"]
+    rec_bws, fine32 = check_bws_kernels(bws_operators(
+        path["Ap"], path["A_bws"], path["solver"], num_levels), "cuda")
     H_blk, A_blk, gen_s, pack_s = block_operator("cuda")
     rec_bdia = check_bdia_kernels(A_blk, "cuda")
     k4_launches = block_single(H_blk, A_blk, "cuda", gen_s, pack_s)
@@ -1363,6 +1620,8 @@ def main():
     rec_k6 = fine.pop("rec")
     counts_grid = grid_path(fine, "cuda")
     oo_gmg("cuda")
+    profile_unstructured(path, fine32, rec_bws)
+    del path, fine32
 
     src = "pysolvers_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
@@ -1372,6 +1631,8 @@ def main():
         dict(name="bws_spmv", route="cuda", source=src + "bws_spmv.cu",
              replaces="pysolvers_tpu/ops/bws_spmv.py:212",
              launches=counts["K2"], **rec_bws["K2"]),
+        # K3 serves bws_spmv_by_class, which no solve path calls: phase 7
+        # checks that it made no launch there
         dict(name="bws_spmv_classes", route="cuda",
              source=src + "bws_spmv.cu",
              replaces="pysolvers_tpu/ops/bws_spmv.py:149",

@@ -5,7 +5,7 @@ It imports torch and numpy and never jax or pysolvers_tpu.  It carries
 the main path: PCG preconditioned by smoothed-aggregation AMG at native
 precision, with every banded operator applied by the hand-written CUDA
 kernel K1 (``csrc/dia_spmv.cu``) on an NVIDIA H100, and the unstructured
-(BWS) lane, whose operators are applied by K2/K3 (``csrc/bws_spmv.cu``),
+(BWS) lane, whose operators are applied by K2 (``csrc/bws_spmv.cu``),
 the block-DIA lane of ``solve()`` (single- and multi-RHS), whose
 block operators are applied by K4/K5 (``csrc/bdia_spmv.cu``), and
 structured-grid geometric multigrid (host-Galerkin and device-probed grid

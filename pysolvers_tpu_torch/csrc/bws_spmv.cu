@@ -1,167 +1,228 @@
-// K2 and K3: block-window SELL (BWS) sparse matrix-vector product for
-// Hopper (sm_90a), in the pack's own (permuted) ordering.
+// K2 and K3: sparse matrix-vector product of a BWS-packed operator for
+// Hopper (sm_90a), in the pack's own (permuted) ordering, over the
+// operator's device CSR (sparse/bws.py::bws_device_csr):
 //
-//   y[g * group_rows + l / slots] = sum over s < S, and the slots lanes l of
-//       that row, of data[g, s, l] * x[(base[g / gt] + delta[g, s]) * 128
-//                                      + lidx[g, s, l]],
-//   with x taken as zero at columns >= n_cols; slots = 128 / group_rows.
+//   y[r] = sum over k in [indptr[r], indptr[r + 1]) of
+//          values[k] * x[indices[k]].
 //
-// K2 (bws_spmv_*) runs every group with the pack's full segment count S.
-// Replaces pysolvers_tpu/ops/bws_spmv.py::bws_spmv (_bws_call, kernel
-// _bws_kernel).  K3 (bws_spmv_classes_*) runs the groups of one segment
-// class: its tiles come from a tile-id list, and only the class's first
-// S_c segments are read (the rest of those tiles' segments hold zeros).
-// Replaces pysolvers_tpu/ops/bws_spmv.py::_bws_call_classes (kernel
+// K2 (bws_spmv_*) runs every row block, one launch per product.  It
+// replaces pysolvers_tpu/ops/bws_spmv.py::bws_spmv (_bws_call, kernel
+// _bws_kernel).  K3 (bws_spmv_classes_*) runs the row blocks of one
+// segment class, from a list of block ids, and writes only their rows.
+// It replaces pysolvers_tpu/ops/bws_spmv.py::_bws_call_classes (kernel
 // _bws_kernel_cls).  Both share one device function.
 //
-// What bounds it: device-memory bytes.  Each slot moves its value and its
-// 32-bit lane index (sizeof(T) + 4 bytes) for one multiply-add, and the
-// slots are mostly padding: on the 1M-unknown FEM operator 14.6 % of the
-// slots hold a nonzero, so the kernel reads about 7x the bytes of the
-// real entries.  Narrower lane indices and a layout with less padding are
-// the levers; neither is pulled here.
+// What bounds it: device-memory bytes.  Each nonzero moves its value and
+// a 32-bit column index (sizeof(T) + 4 bytes) for one multiply-add; the
+// row pointers, the block table, x and y add 4 (n_rows + 1) +
+// 4 (n_blocks + 1) + sizeof(T) (n_cols + n_rows).  That is the CSR
+// minimum.  The TPU's pack is no layout for this card: a slot costs a
+// value and a lane index whether it holds a nonzero or padding, and on
+// the FEM operators 19-24 % of the slots hold one.  So the card reads
+// the CSR derived from the pack when the matrix is made.  The segment
+// classes let the TPU kernel skip padded segments; the CSR has none to
+// skip, so the solve paths run K2 alone, one launch per product, and K3
+// serves a product by class (ops/bws_spmv.py::bws_spmv_by_class).
 //
-// What the design does about it: one 128-thread slice per group, thread l
-// on lane l, two groups per 256-thread block.  For each segment s the
-// slice reads data[g, s, :] and lidx[g, s, :] as 128 contiguous values
-// (coalesced) and delta[g, s] as one broadcast; the x reads of one
-// segment fall inside one 128-column block, a few cache lines served
-// from L1/L2.  The TPU kernel's one-hot MXU block select, its x window in
-// VMEM and its reduction matmul are not needed on Hopper: a gather is a
-// plain load, and the slots of a row (2 to 16 adjacent lanes, inside one
-// warp) are summed with warp shuffles.  x is not padded: the column mask
-// takes the place of the TPU's W trailing zero blocks.  Each class tile
-// writes its own rows of y, so there is no zero-fill and no scatter.
+// What the design does about it (CSR-stream): a block of 256 threads
+// takes one row block of the partition (sparse/bws.py::row_block_table).
+// A block of several rows holds fewer than kStage = 2 kWindow nonzeros.
+// Its threads read values[k] and indices[k] of the block's contiguous
+// range, fully coalesced whatever the row lengths (FEM rows hold about 7
+// nonzeros, so a warp per row would leave most lanes idle), with the
+// evict-first hint (__ldcs): they are read once, and x, gathered through
+// the read-only path, keeps the caches.  The products are staged in shared
+// memory; each row is then summed from there, by one thread or, where
+// the block holds few rows, by up to 32 threads with shuffles.  Each
+// thread loads its row's bounds together with its products, so the sums
+// wait on no second round trip.  A block of one row (a row longer than
+// kWindow, or alone in its window) is reduced across the block.  Sums
+// run in T in a fixed order, so a result does not vary from run to run.
 //
-// Offsets into the (n_groups, S, 128) tables are 64-bit.
+// Offsets into values and indices are 64-bit; indptr is int32 below 2^31
+// nonzeros and int64 from there (template parameter P).
 //
-// Plain C interface for ctypes: every entry launches on the given stream
+// Plain C interface for ctypes: every entry launches on `device` and the
+// given stream (switching to the device and back when it is not the
+// calling thread's current one, so the wrapper needs no device context)
 // and returns cudaGetLastError(); the wrapper raises if it is not 0.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kGroupsPerBlock = 2;
-constexpr int kThreads = kLanes * kGroupsPerBlock;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// sparse/bws.py's ROW_BLOCK_WINDOW (tests/test_torch_bws_layout.py holds
+// them equal): the partition keeps a block of several rows below kStage
+constexpr int kWindow = 1024;
+constexpr int kStage = 2 * kWindow;   // nonzeros of a block of several rows
+constexpr int kUnroll = 4;            // loads in flight per thread
 
-// One group's product: the calling 128 threads (four whole warps) hold
-// lanes 0..127 of group g.
+// values and indices are read once: evict-first, so x keeps the caches
 template <typename T>
-__device__ __forceinline__ void group_spmv(
-    const int* __restrict__ base, const int* __restrict__ delta,
-    const T* __restrict__ data, const int* __restrict__ lidx,
-    const T* __restrict__ x, T* __restrict__ y, long long g, int tile,
-    int lane, long long n_rows, long long n_cols, int S_stride, int S_run,
-    int group_rows) {
-  const long long tile_col = (long long)base[tile] * kLanes;
-  const long long seg0 = g * S_stride;
-  T acc = T(0);
-#pragma unroll 4
-  for (int s = 0; s < S_run; ++s) {
-    const long long off = (seg0 + s) * kLanes + lane;
-    const long long col =
-        tile_col + (long long)delta[seg0 + s] * kLanes + lidx[off];
-    const T v = data[off];
-    acc += v * (col < n_cols ? x[col] : T(0));
+__device__ __forceinline__ T load_once(const T* p) {
+  return __ldcs(p);
+}
+
+// Sum over aligned groups of `width` lanes (a power of two up to 32); lane
+// 0 of each group holds its group's sum.  Every lane of the warp calls it.
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, o, width);
+  return v;
+}
+
+template <typename T, typename P>
+__device__ __forceinline__ void row_block_spmv(
+    int blk, const int* __restrict__ row_blocks, const P* __restrict__ indptr,
+    const int* __restrict__ indices, const T* __restrict__ values,
+    const T* __restrict__ x, T* __restrict__ y, T* stage) {
+  const int r0 = row_blocks[blk];
+  const int r1 = row_blocks[blk + 1];
+  const long long k0 = (long long)indptr[r0];
+  const long long k1 = (long long)indptr[r1];
+  const int tid = threadIdx.x;
+
+  if (r1 - r0 == 1) {  // one row: strided partial sums, block reduction
+    T acc = T(0);
+    for (long long k = k0 + tid; k < k1; k += kThreads)
+      acc += load_once(values + k) * __ldg(x + load_once(indices + k));
+    acc = group_sum(acc, 32);
+    if ((tid & 31) == 0) stage[tid >> 5] = acc;
+    __syncthreads();
+    if (tid < 32) {
+      acc = group_sum(tid < kWarps ? stage[tid] : T(0), 32);
+      if (tid == 0) y[r0] = acc;
+    }
+    return;
   }
-  const int slots = kLanes / group_rows;
-  for (int o = slots >> 1; o > 0; o >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, o);
-  if ((lane & (slots - 1)) == 0) {
-    const long long row = g * group_rows + lane / slots;
-    if (row < n_rows) y[row] = acc;
+
+  // Threads per row: 1 where the block holds more than kThreads / 2 rows,
+  // else the largest power of two up to 32 that still covers every row.
+  const int rows = r1 - r0;
+  int tpr = 1;
+  if (2 * rows <= kThreads) {
+    tpr = 2;
+    while (tpr < 32 && 2 * tpr * rows <= kThreads) tpr <<= 1;
+  }
+  int r = r0 + tid / tpr;
+  const int lane = tid & (tpr - 1);
+  long long a = 0, b = 0;
+  if (r < r1) {
+    a = (long long)indptr[r] - k0;
+    b = (long long)indptr[r + 1] - k0;
+  }
+
+  const int nnz = (int)(k1 - k0);  // < kStage by the partition
+  for (int i = tid; i < nnz; i += kUnroll * kThreads) {
+    T v[kUnroll];
+    int c[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = i + u * kThreads;
+      v[u] = T(0);
+      c[u] = 0;
+      if (j < nnz) {
+        v[u] = load_once(values + k0 + j);
+        c[u] = load_once(indices + k0 + j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = i + u * kThreads;
+      if (j < nnz) stage[j] = v[u] * __ldg(x + c[u]);
+    }
+  }
+  __syncthreads();
+
+  if (tpr > 1) {  // every row has its group; one pass
+    T acc = T(0);
+    for (long long j = a + lane; j < b; j += tpr) acc += stage[j];
+    acc = group_sum(acc, tpr);
+    if (lane == 0 && r < r1) y[r] = acc;
+    return;
+  }
+  while (r < r1) {
+    T acc = T(0);
+    for (long long j = a; j < b; ++j) acc += stage[j];
+    y[r] = acc;
+    r += kThreads;
+    if (r < r1) {
+      a = (long long)indptr[r] - k0;
+      b = (long long)indptr[r + 1] - k0;
+    }
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-bws_spmv_kernel(const int* __restrict__ base, const int* __restrict__ delta,
-                const T* __restrict__ data, const int* __restrict__ lidx,
-                const T* __restrict__ x, T* __restrict__ y, long long n_rows,
-                long long n_cols, long long n_groups, int S, int gt,
-                int group_rows) {
-  const long long g =
-      (long long)blockIdx.x * kGroupsPerBlock + threadIdx.x / kLanes;
-  if (g >= n_groups) return;  // whole groups, so whole warps, leave
-  group_spmv<T>(base, delta, data, lidx, x, y, g, (int)(g / gt),
-                threadIdx.x % kLanes, n_rows, n_cols, S, S, group_rows);
+bws_spmv_kernel(const int* __restrict__ row_blocks,
+                const P* __restrict__ indptr, const int* __restrict__ indices,
+                const T* __restrict__ values, const T* __restrict__ x,
+                T* __restrict__ y) {
+  __shared__ T stage[kStage];
+  row_block_spmv<T, P>(blockIdx.x, row_blocks, indptr, indices, values, x, y,
+                       stage);
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-bws_spmv_classes_kernel(const int* __restrict__ ids,
-                        const int* __restrict__ base,
-                        const int* __restrict__ delta,
-                        const T* __restrict__ data,
-                        const int* __restrict__ lidx,
-                        const T* __restrict__ x, T* __restrict__ y,
-                        long long n_rows, long long n_cols,
-                        long long n_class_groups, int S, int S_c, int gt,
-                        int group_rows) {
-  const long long local =
-      (long long)blockIdx.x * kGroupsPerBlock + threadIdx.x / kLanes;
-  if (local >= n_class_groups) return;
-  const int tile = ids[local / gt];
-  const long long g = (long long)tile * gt + local % gt;
-  group_spmv<T>(base, delta, data, lidx, x, y, g, tile, threadIdx.x % kLanes,
-                n_rows, n_cols, S, S_c, group_rows);
+bws_spmv_classes_kernel(const int* __restrict__ block_ids,
+                        const int* __restrict__ row_blocks,
+                        const P* __restrict__ indptr,
+                        const int* __restrict__ indices,
+                        const T* __restrict__ values, const T* __restrict__ x,
+                        T* __restrict__ y) {
+  __shared__ T stage[kStage];
+  row_block_spmv<T, P>(block_ids[blockIdx.x], row_blocks, indptr, indices,
+                       values, x, y, stage);
 }
 
-unsigned blocks_for(long long groups) {
-  return (unsigned)((groups + kGroupsPerBlock - 1) / kGroupsPerBlock);
-}
-
-template <typename T>
-int launch(const void* base, const void* delta, const void* data,
-           const void* lidx, const void* x, void* y, long long n_rows,
-           long long n_cols, long long n_groups, long long S, long long gt,
-           long long group_rows, void* stream) {
-  if (n_groups > 0)
-    bws_spmv_kernel<T><<<blocks_for(n_groups), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (const int*)base, (const int*)delta, (const T*)data,
-        (const int*)lidx, (const T*)x, (T*)y, n_rows, n_cols, n_groups,
-        (int)S, (int)gt, (int)group_rows);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_classes(const void* ids, long long n_ids, const void* base,
-                   const void* delta, const void* data, const void* lidx,
-                   const void* x, void* y, long long n_rows, long long n_cols,
-                   long long S, long long S_c, long long gt,
-                   long long group_rows, void* stream) {
-  const long long groups = n_ids * gt;
-  if (groups > 0)
-    bws_spmv_classes_kernel<T><<<blocks_for(groups), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const int*)ids, (const int*)base, (const int*)delta,
-        (const T*)data, (const int*)lidx, (const T*)x, (T*)y, n_rows, n_cols,
-        groups, (int)S, (int)S_c, (int)gt, (int)group_rows);
-  return (int)cudaGetLastError();
+// Launches K2 (block_ids null: blocks 0 .. n - 1) or K3 (the n blocks of
+// block_ids) on `device`.
+template <typename T, typename P>
+int launch(const void* block_ids, long long n, const void* row_blocks,
+           const void* indptr, const void* indices, const void* values,
+           const void* x, void* y, int device, void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0 && block_ids == nullptr)
+    bws_spmv_kernel<T, P><<<(unsigned)n, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)row_blocks, (const P*)indptr, (const int*)indices,
+        (const T*)values, (const T*)x, (T*)y);
+  else if (n > 0)
+    bws_spmv_classes_kernel<T, P><<<(unsigned)n, kThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        (const int*)block_ids, (const int*)row_blocks, (const P*)indptr,
+        (const int*)indices, (const T*)values, (const T*)x, (T*)y);
+  err = cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return (int)err;
 }
 
 }  // namespace
 
-#define BWS_ENTRIES(SUFFIX, T)                                                \
+#define BWS_ENTRIES(SUFFIX, T, P)                                             \
   extern "C" int bws_spmv_##SUFFIX(                                           \
-      const void* base, const void* delta, const void* data,                  \
-      const void* lidx, const void* x, void* y, long long n_rows,             \
-      long long n_cols, long long n_groups, long long S, long long gt,        \
-      long long group_rows, void* stream) {                                   \
-    return launch<T>(base, delta, data, lidx, x, y, n_rows, n_cols,           \
-                     n_groups, S, gt, group_rows, stream);                    \
+      const void* row_blocks, long long n_blocks, const void* indptr,         \
+      const void* indices, const void* values, const void* x, void* y,        \
+      int device, void* stream) {                                             \
+    return launch<T, P>(nullptr, n_blocks, row_blocks, indptr, indices,       \
+                        values, x, y, device, stream);                        \
   }                                                                           \
   extern "C" int bws_spmv_classes_##SUFFIX(                                   \
-      const void* ids, long long n_ids, const void* base, const void* delta,  \
-      const void* data, const void* lidx, const void* x, void* y,             \
-      long long n_rows, long long n_cols, long long S, long long S_c,         \
-      long long gt, long long group_rows, void* stream) {                     \
-    return launch_classes<T>(ids, n_ids, base, delta, data, lidx, x, y,       \
-                             n_rows, n_cols, S, S_c, gt, group_rows, stream); \
+      const void* block_ids, long long n_ids, const void* row_blocks,         \
+      const void* indptr, const void* indices, const void* values,            \
+      const void* x, void* y, int device, void* stream) {                     \
+    return launch<T, P>(block_ids, n_ids, row_blocks, indptr, indices,        \
+                        values, x, y, device, stream);                        \
   }
 
-BWS_ENTRIES(f32, float)
-BWS_ENTRIES(f64, double)
+BWS_ENTRIES(f32_i32, float, int)
+BWS_ENTRIES(f64_i32, double, int)
+BWS_ENTRIES(f32_i64, float, long long)
+BWS_ENTRIES(f64_i64, double, long long)

@@ -29,7 +29,7 @@ reference AMG stack:
 Setup runs on the host; the cycle runs on the hierarchy's device as plain
 torch calls, with every DIA operator applied by kernel K1 on CUDA and,
 under ``matrix_format="bws"``, every level operator and transfer of at
-least 2000 rows or columns packed as BWS and applied by kernels K2/K3.
+least 2000 rows or columns packed as BWS and applied by kernel K2.
 What the JAX package chose by ``jax.default_backend()`` is chosen here by
 the hierarchy's ``device.type``: the "auto" smoother is "jacobi" on CUDA
 and "gs" on the CPU; the Galerkin product is always built on the host;
@@ -331,7 +331,7 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
     banded (kernel K1 on CUDA), ELL otherwise.
 
     ``matrix_format="bws"`` packs every level operator and (rectangular)
-    transfer with max(shape) >= 2000 as BWS (kernels K2/K3 on CUDA), in
+    transfer with max(shape) >= 2000 as BWS (kernel K2 on CUDA), in
     identity order (``use_rcm=False``): ``group_rows=32`` for square
     levels, the auto geometry for transfers, ``gt="auto"``.  A matrix too
     unbanded for a BWS window keeps the auto format, as in the JAX
@@ -603,7 +603,7 @@ class AMGPreconditionerType(PreconditionerType):
         self.smoother = smoother
         self.base_tol = base_tol
         self.side = side
-        # "bws": level operators and transfers packed for kernels K2/K3
+        # "bws": level operators and transfers packed for kernel K2
         # (build_device_hierarchy) — the path for large unstructured
         # hierarchies, where ELL gathers serve every level otherwise
         self.matrix_format = matrix_format

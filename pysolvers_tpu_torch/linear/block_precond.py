@@ -17,7 +17,7 @@ block-DIA format.  Every apply stays in the planar (dof-major) layout.
 * ``BlockMGBdiaPreconditionerType`` — b independent scalar SA-AMG
   hierarchies, one per dof subsystem (``bdia_dof_subsystem``), built with
   the port's ``build_sa_hierarchy``/``build_device_hierarchy``: BWS level
-  operators in f32 (kernels K2/K3), the auto formats in f64 (K1 on each
+  operators in f32 (kernel K2), the auto formats in f64 (K1 on each
   dof's banded fine level).
 * ``BlockChebyshevBdiaPreconditionerType`` — degree-k Chebyshev on the
   block-Jacobi-scaled operator; every product is K4.
@@ -146,7 +146,7 @@ class BlockMGBdiaPreconditionerType(PreconditionerType):
              device=None) -> Preconditioner:
         A = _bdia_operand(A_host, A_dev)
         dtype = numpy_dtype(A.dtype)
-        # BWS level operators in f32 (K2/K3), the auto formats in f64
+        # BWS level operators in f32 (K2), the auto formats in f64
         fmt = "bws" if dtype == np.float32 else "auto"
         hierarchies = []
         with Timer("bdia.bmg_setup"):

@@ -2,16 +2,23 @@
 
 Port of ``pysolvers_tpu/ops/bws_spmv.py``:
 
-* ``bws_spmv(A, x)`` — the wrapper of kernels K2 and K3
-  (``csrc/bws_spmv.cu``), y' = A'·x' in the pack's ordering.  It takes the
-  JAX package's path decision unchanged: the class kernel K3 (one launch
-  per segment class) when the modelled slot savings beat the extra calls,
-  else the plain kernel K2 (one launch).  A CPU tensor goes to the plain
-  twin ``bws_spmv_torch``; a CUDA tensor launches K2/K3 or raises — it
-  never falls back.
-* ``bws_spmv_torch`` — the plain version, following the same path
-  decision: over all groups with the full segment count, or class by
-  class with each class's count.
+* ``bws_spmv(A, x)`` — the wrapper of kernel K2 (``csrc/bws_spmv.cu``),
+  y' = A'·x' in the pack's ordering: on CUDA one launch over every row
+  block of the matrix's device CSR (``A.csr``), whatever ``s_classes``
+  holds.  The JAX package runs the segment classes (K3) when the slots
+  they skip pay for the extra calls; the device CSR has no padded slots,
+  so on the card the classes only add launches.
+* ``bws_spmv_by_class(A, x)`` — the wrapper of kernel K3: the same
+  product with one launch per segment class, each over the row blocks of
+  its tiles.  No solve path calls it.
+* ``bws_spmv_torch`` — the plain twin, over the pack's tables, following
+  the JAX package's path rule ``use_classes`` (all groups with the full
+  segment count, or class by class with each class's count; padded slots
+  add exact zeros, so both give one result).
+
+A CPU tensor goes to the twin; a CUDA tensor launches K2/K3 or raises (a
+CUDA matrix without its layout included) — it never falls back.
+
 * ``bws_matvec`` — y = A·x in the user's ordering (permutes in and out).
 
 Not ported: the TPU kernels' x window (``_x_window_mode``,
@@ -30,8 +37,8 @@ from ..sparse.bws import (BwsMatrix, CALL_COST_SLOTS, SELECT_DIV_EXACT,
                           SELECT_DIV_FAST)
 from . import _cuda_build
 
-# Launches of K2 and of K3 since the last reset: bws_spmv adds one per
-# kernel launch and nowhere else.
+# Launches of K2 (bws_spmv) and of K3 (bws_spmv_by_class) since the last
+# reset: each wrapper adds one per kernel launch and nowhere else.
 bws_spmv_launches = 0
 bws_spmv_classes_launches = 0
 
@@ -41,7 +48,7 @@ _ENTRIES: dict = {}
 def use_classes(A: BwsMatrix) -> bool:
     """The JAX package's path rule (``ops/bws_spmv.py:239-250``): run the
     segment classes when the slots they save, with their select work,
-    outweigh the extra per-call cost."""
+    outweigh the extra per-call cost.  Only the twin follows it."""
     if len(A.s_classes) <= 1:
         return False
     slots_classed = sum(s_c * len(ids)
@@ -84,20 +91,18 @@ def bws_spmv_torch(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)[: A.n_rows]
 
 
-def _entry(name: str, dtype):
-    key = (name, dtype)
+def _entry(name: str, dtype, index_dtype):
+    key = (name, dtype, index_dtype)
     fn = _ENTRIES.get(key)
     if fn is None:
         lib = _cuda_build.load("bws_spmv")
-        suffix = "f32" if dtype == torch.float32 else "f64"
+        suffix = ("f32" if dtype == torch.float32 else "f64") + (
+            "_i32" if index_dtype == torch.int32 else "_i64")
         fn = getattr(lib, f"{name}_{suffix}")
-        if name == "bws_spmv":
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6
-                           + [ctypes.c_void_p])
-        else:
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                           + [ctypes.c_void_p] * 6
-                           + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+        n_ptrs = 5 if name == "bws_spmv" else 6
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * n_ptrs
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _ENTRIES[key] = fn
     return fn
@@ -108,13 +113,9 @@ def _check(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 
 
-def bws_spmv(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y' = A'·x' in the pack's ordering (x' = x[perm], y = y'[iperm]).
-
-    ``x`` has length shape[1] (rectangular packs — AMG transfers — are
-    supported); the result has length shape[0].  K3 on CUDA when the
-    classes pay (``use_classes``), else K2; the twin on the CPU."""
-    global bws_spmv_launches, bws_spmv_classes_launches
+def _check_call(A: BwsMatrix, x: torch.Tensor) -> bool:
+    """Checks both wrappers share; True when x lies on the CPU (the twin's
+    case), False on CUDA, where A must carry its layout."""
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"BWS SpMV takes float32 or float64, got {A.dtype}")
     if x.dtype != A.dtype:
@@ -125,38 +126,69 @@ def bws_spmv(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
     if x.device != A.device:
         raise ValueError(f"x is on {x.device}, the operator on {A.device}")
     if x.device.type == "cpu":
-        return bws_spmv_torch(A, x)
+        return True
     if x.device.type != "cuda":
         raise ValueError(f"BWS SpMV runs on CPU or CUDA, not {x.device}")
-    if A.group_rows < 4 or 128 % A.group_rows:
-        raise ValueError(f"K2/K3 take group_rows dividing 128 with at most "
-                         f"32 slots, not {A.group_rows}")
-    if not (x.is_contiguous() and A.data.is_contiguous()
-            and A.lidx.is_contiguous() and A.delta.is_contiguous()):
-        raise ValueError("K2/K3 take contiguous x and tables")
+    if A.csr is None:
+        raise ValueError("this CUDA BwsMatrix has no device CSR layout "
+                         "(BwsMatrix builds it when its tables lie on CUDA)")
+    if not x.is_contiguous():
+        raise ValueError("K2/K3 take a contiguous x")
+    return False
+
+
+def _launch_args(L, x: torch.Tensor, y: torch.Tensor):
+    """The arguments after the block list: pointers, x's device and its
+    current stream.  A product is mostly host time on the small
+    levels: the entry switches to x's device itself, and the raw stream
+    handle (the lookup torch's generated kernels use) spares a device
+    context and a Stream object per call."""
+    dev = x.device.index
+    return (L.row_blocks.data_ptr(), L.indptr.data_ptr(),
+            L.indices.data_ptr(), L.values.data_ptr(), x.data_ptr(),
+            y.data_ptr(), dev, torch._C._cuda_getCurrentRawStream(dev))
+
+
+def bws_spmv(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y' = A'·x' in the pack's ordering (x' = x[perm], y = y'[iperm]).
+
+    ``x`` has length shape[1] (rectangular packs — AMG transfers — are
+    supported); the result has length shape[0].  On CUDA: one launch of
+    K2 over every row block of ``A.csr``, whatever ``s_classes`` holds;
+    on the CPU: the twin."""
+    global bws_spmv_launches
+    if _check_call(A, x):
+        return bws_spmv_torch(A, x)
+    L = A.csr
     y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
-    if A.n_rows == 0:
-        return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    common = (A.data.data_ptr(), A.lidx.data_ptr(), x.data_ptr(),
-              y.data_ptr(), A.n_rows, A.n_cols)
-    with torch.cuda.device(x.device):
-        if use_classes(A):
-            fn = _entry("bws_spmv_classes", A.dtype)
-            start = 0
-            for S_c, ids in A.s_classes:
-                ids_ptr = A.tile_ids.data_ptr() + 4 * start
-                start += len(ids)
-                _check(fn(ids_ptr, len(ids), A.base.data_ptr(),
-                          A.delta.data_ptr(), *common, A.n_segments, S_c,
-                          A.gt, A.group_rows, stream), "K3 (bws_spmv_classes)")
-                bws_spmv_classes_launches += 1
-        else:
-            fn = _entry("bws_spmv", A.dtype)
-            _check(fn(A.base.data_ptr(), A.delta.data_ptr(), *common,
-                      A.n_groups, A.n_segments, A.gt, A.group_rows, stream),
-                   "K2 (bws_spmv)")
-            bws_spmv_launches += 1
+    args = _launch_args(L, x, y)
+    _check(_entry("bws_spmv", A.dtype, L.indptr.dtype)(
+        args[0], L.n_blocks, *args[1:]), "K2 (bws_spmv)")
+    bws_spmv_launches += 1
+    return y
+
+
+def bws_spmv_by_class(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The same product, class by class: on CUDA one launch of K3 for each
+    segment class with row blocks, each writing only its tiles' rows; on
+    the CPU the twin.  The solve paths take ``bws_spmv``."""
+    global bws_spmv_classes_launches
+    if not A.s_classes:
+        raise ValueError("the pack has no segment classes")
+    if _check_call(A, x):
+        return bws_spmv_torch(A, x)
+    L = A.csr
+    y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
+    fn = _entry("bws_spmv_classes", A.dtype, L.indptr.dtype)
+    args = _launch_args(L, x, y)
+    starts = L.class_starts
+    for c in range(len(starts) - 1):
+        n = starts[c + 1] - starts[c]
+        if n == 0:
+            continue                # a class of tiles past the last row
+        _check(fn(L.class_blocks.data_ptr() + 4 * starts[c], n, *args),
+               "K3 (bws_spmv_classes)")
+        bws_spmv_classes_launches += 1
     return y
 
 

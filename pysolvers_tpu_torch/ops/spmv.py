@@ -27,7 +27,7 @@ Port of ``pysolvers_tpu/ops/spmv.py``:
   rectangular padding rule.  ``dia_spmm_rows`` is the same product on the
   row layout (k, n); the GMG prober calls it on its comb batches.
 * ``matvec`` — dispatch by format; a ``BwsMatrix`` goes to ``bws_spmv``
-  (kernels K2/K3, ``ops/bws_spmv.py``) in the pack's ordering, a
+  (kernel K2, ``ops/bws_spmv.py``) in the pack's ordering, a
   ``BdiaMatrix`` to ``bdia_spmv`` in planar ordering, a ``GridDiaMatrix``
   to ``grid_dia_spmv`` (kernel K6, ``ops/grid_spmv.py``).  ``matmat`` —
   the multi-vector dispatch, for ``DiaMatrix``, ``BdiaMatrix`` and dense

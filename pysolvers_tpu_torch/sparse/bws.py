@@ -18,14 +18,21 @@ defines it:
 
 The numpy pack below is the JAX package's, line for line, and gives the
 same arrays bit for bit; only the container changes: ``BwsMatrix`` is a
-frozen dataclass of torch tensors on an explicit device.  Its SpMV is the
-CUDA kernel pair K2/K3 (``ops/bws_spmv.py``).
+frozen dataclass of torch tensors on an explicit device.
+
+The card does not read the pack.  Most of its slots are padding (a fill
+of 0.19–0.24 on the FEM operators), and each slot costs a value and a
+lane index.  So a ``BwsMatrix`` whose tables lie on CUDA also carries
+``csr``: the CSR of the same permuted operator, derived from the tables
+on the device by ``bws_device_csr`` when the matrix is made, with the
+row-block partition that kernels K2/K3 (``csrc/bws_spmv.cu``) walk.  A
+CPU matrix carries none; its product is the twin over the pack.
 
 The geometry model (``STEP_COST_SLOTS`` … ``SELECT_DIV_FAST``) is the JAX
 package's, measured there for its TPU kernel (per-step, per-call and
 one-hot-select costs).  It is kept unchanged so that both packages choose
-the same geometry and the same class/plain path; it has not been
-re-measured for the Hopper kernels.
+the same geometry and the same segment classes; the card's kernels do not
+read it.
 
 Not ported:
 * ``host_pack``'s deferred ``SetupItem``/``DeviceCached`` build (one upload
@@ -43,6 +50,7 @@ kernels read x directly, exactly, so it changes nothing there.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -52,6 +60,12 @@ from .host import HostCSR
 
 GT = 128                # groups per kernel tile
 DEFAULT_GROUP_ROWS = 32  # rows per group; slots per row = 128 // group_rows
+# Row blocks of the device CSR (``row_block_table``): rows are cut where
+# their first nonzero crosses a multiple of this many nonzeros, so a block
+# of several rows holds fewer than twice as many, which K2/K3 stage in
+# shared memory.  csrc/bws_spmv.cu's kWindow must equal it (a test holds
+# them equal).
+ROW_BLOCK_WINDOW = 1024
 # Geometry cost model, in slot-equivalents (the JAX package's constants,
 # measured for its TPU kernel): per grid step, per kernel call, and the
 # one-hot block select (win_blocks / SELECT_DIV per slot; exact or bf16).
@@ -334,6 +348,122 @@ def pack_arrays(H: HostCSR, dtype=np.float32, use_rcm: bool = True,
 
 
 @dataclasses.dataclass(frozen=True)
+class BwsCsr:
+    """The card's layout of a BWS operator (``bws_device_csr``).
+
+    indptr:  (n_rows + 1,) int32 (int64 from 2**31 nonzeros on)
+    indices: (nnz,) int32   column of each nonzero, ascending in its row
+    values:  (nnz,)         the pack's values, in the pack's type
+    row_blocks: (n_blocks + 1,) int32  first row of each block, then
+             n_rows (``row_block_table``)
+    class_blocks: (n_blocks,) int32  the blocks of the segment classes,
+             class by class, each block in the class of its tile (empty
+             without classes)
+    class_starts: offsets of each class in ``class_blocks`` and its end,
+             host ints (so that a class product needs no device read)
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    values: torch.Tensor
+    row_blocks: torch.Tensor
+    class_blocks: torch.Tensor
+    class_starts: tuple
+
+    @property
+    def nnz(self) -> int:
+        return self.indices.numel()
+
+    @property
+    def n_blocks(self) -> int:
+        return self.row_blocks.numel() - 1
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the layout."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.indptr, self.indices, self.values,
+                             self.row_blocks, self.class_blocks))
+
+
+def row_block_table(indptr: torch.Tensor, rows_per_tile: int) -> torch.Tensor:
+    """First row of each row block, then n_rows (int32, on indptr's
+    device).  Rows are cut
+
+    * at the first row whose first nonzero lies at or past each multiple
+      of ``ROW_BLOCK_WINDOW`` (W) nonzeros,
+    * before and after every row of more than W nonzeros,
+    * at every tile's first row (``rows_per_tile`` = gt · group_rows), so
+      that a segment class is a set of whole blocks.
+
+    A block of several rows then holds rows that all start within one
+    window of W and each end at most W past it: fewer than 2 · W nonzeros.
+    A longer row is a block of its own."""
+    n_rows = indptr.numel() - 1
+    dev = indptr.device
+    ptr = indptr.to(torch.int64)
+    W = ROW_BLOCK_WINDOW
+    marks = torch.arange(0, max(int(ptr[-1]), 1), W, device=dev)
+    long_rows = torch.nonzero(ptr[1:] - ptr[:-1] > W).squeeze(1)
+    cuts = torch.cat([torch.searchsorted(ptr[:-1], marks),
+                      torch.arange(0, n_rows, rows_per_tile, device=dev),
+                      long_rows, long_rows + 1])
+    starts = torch.unique(cuts[cuts < n_rows])
+    return torch.cat([starts, torch.full((1,), n_rows, device=dev)]).to(
+        torch.int32)
+
+
+def bws_device_csr(A: "BwsMatrix") -> BwsCsr:
+    """The CSR of A's operator in the pack's ordering, with its row blocks,
+    built on A's device by torch ops from the tables alone, so that every
+    BwsMatrix gets it however it was made (packed here, carried over from
+    the JAX package, ``dataclasses.replace``).
+
+    Slot (g, s, l) is row g · group_rows + l // slots and column
+    (base[g // gt] + delta[g, s]) · 128 + lidx[g, s, l].  Slots holding 0,
+    or past n_rows or n_cols, are dropped: the pack cannot tell a stored
+    zero from padding, and the product (x finite) needs neither.  The rest
+    are sorted by (row, column).  Reads the nonzero count back from the
+    device, so it runs when the matrix is made, never per product."""
+    n_rows, n_cols = A.shape
+    S = A.n_segments
+    data = A.data.reshape(-1)
+    slot = torch.nonzero(data).squeeze(1)
+    g = slot // (S * 128)
+    lane = slot % 128
+    row = g * A.group_rows + lane // A.slots
+    col = ((A.base.to(torch.int64)[g // A.gt]
+            + A.delta.reshape(-1)[slot // 128]) * 128
+           + A.lidx.reshape(-1)[slot])
+    del g, lane
+    keep = (row < n_rows) & (col < n_cols)
+    slot, row, col = slot[keep], row[keep], col[keep]
+    order = torch.argsort(row * n_cols + col, stable=True)
+    slot, row, col = slot[order], row[order], col[order]
+    del order, keep
+    nnz = slot.numel()
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=A.device)
+    torch.cumsum(torch.bincount(row, minlength=n_rows), 0, out=indptr[1:])
+    del row
+    indptr = indptr.to(torch.int32 if nnz < 2**31 else torch.int64)
+    rows_per_tile = A.gt * A.group_rows
+    blocks = row_block_table(indptr, rows_per_tile)
+    class_blocks = torch.zeros(0, dtype=torch.int32, device=A.device)
+    class_starts = ()
+    if A.s_classes:
+        cls_of_tile = np.empty(A.n_groups // A.gt, dtype=np.int64)
+        for c, (_, ids) in enumerate(A.s_classes):
+            cls_of_tile[list(ids)] = c
+        cls = torch.as_tensor(cls_of_tile, device=A.device)[
+            blocks[:-1].to(torch.int64) // rows_per_tile]
+        class_blocks = torch.argsort(cls, stable=True).to(torch.int32)
+        counts = torch.bincount(cls, minlength=len(A.s_classes)).tolist()
+        class_starts = tuple(int(c) for c in np.cumsum([0] + counts))
+    return BwsCsr(indptr, col.to(torch.int32), data[slot], blocks,
+                  class_blocks, class_starts)
+
+
+@dataclasses.dataclass(frozen=True)
 class BwsMatrix:
     """BWS tables on one device (see the module docstring).
 
@@ -352,6 +482,8 @@ class BwsMatrix:
                they partition the tiles
     tile_ids: (n_tiles,) int32 on the device, the tiles of the classes in
               class order (made from ``s_classes``; empty without them)
+    csr: the card's layout (``bws_device_csr``), built here when the
+         tables lie on CUDA; None on the CPU
     """
 
     delta: torch.Tensor
@@ -367,6 +499,7 @@ class BwsMatrix:
     fast_select: bool = False
     gt: int = GT
     tile_ids: torch.Tensor = dataclasses.field(init=False, repr=False)
+    csr: Optional[BwsCsr] = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         n_groups, S = self.delta.shape
@@ -403,6 +536,10 @@ class BwsMatrix:
                 raise ValueError("a BWS segment class exceeds S")
         object.__setattr__(self, "tile_ids", torch.tensor(
             ids, dtype=torch.int32, device=self.data.device))
+        # the card's layout is built here, with the pack (it reads the
+        # nonzero count back); the products never build it
+        object.__setattr__(self, "csr", bws_device_csr(self)
+                           if self.data.device.type == "cuda" else None)
 
     @property
     def n_rows(self) -> int:
@@ -438,7 +575,8 @@ class BwsMatrix:
 
     @property
     def classed_slots(self):
-        """Slots the kernel actually processes (class path when it wins)."""
+        """Slots the JAX package's TPU kernel processes (the class path
+        when it wins); the card's kernels read ``csr`` instead."""
         base = self.nnz_slots
         if len(self.s_classes) > 1:
             classed = sum(s_c * len(ids)
@@ -449,7 +587,7 @@ class BwsMatrix:
     @property
     def kernel_cost(self):
         """Slot-equivalent cost incl. select work and per-step /
-        per-call overheads (the module's cost model)."""
+        per-call overheads (the module's cost model, the TPU's)."""
         n_tiles = self.n_groups // self.gt
         sel_div = SELECT_DIV_FAST if self.fast_select else SELECT_DIV_EXACT
         sel = self.win_blocks / sel_div

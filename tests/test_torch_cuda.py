@@ -9,8 +9,9 @@ Tolerance of K1 against its twin, relative to max|y|: 1e-6 in f32 and
 1e-13 in f64 — K1 contracts each multiply-add into one FMA where the twin
 rounds product and sum separately; both add the D terms in offset order.
 K2/K3 against their twin, relative to max|y|: 1e-5 in f32 and 1e-12 in
-f64 — the kernel sums each lane over the segments and then the slots of a
-row by warp shuffles, the twin in torch's reduction order.  K4/K5 against
+f64 — the kernels sum a row's products over the device CSR (in column
+order, or strided across up to 256 threads and then by shuffles), the
+twin over the pack's segments in torch's reduction order.  K4/K5 against
 their twins: K1's tolerances — K4 adds the (d, q) terms in the twin's
 order, K5 in (q, d) order (a reordering of D·b terms, a few ulps of the
 partial sums), both with FMAs.  K6 against its twin: K1's tolerances, for
@@ -179,6 +180,20 @@ def _spill():
     return HostCSR.from_dense(D)
 
 
+def _long_rows():
+    """Rows longer than a row-block window (1024 nonzeros): 3000, 1500 and
+    1025 nonzeros, each a block of its own, among tridiagonal rows."""
+    rng = np.random.default_rng(3)
+    n = 3500
+    D = np.diag(rng.standard_normal(n) + 4.0)
+    D += np.diag(rng.standard_normal(n - 1), 1)
+    D += np.diag(rng.standard_normal(n - 1), -1)
+    D[1700, :3000] = rng.standard_normal(3000)
+    D[10, 100:1600] = rng.standard_normal(1500)
+    D[3000, 2400:3425] = rng.standard_normal(1025)
+    return HostCSR.from_dense(D)
+
+
 # name -> (host matrix builder, pack keyword arguments)
 BWS_CASES = {
     "square_rcm": (lambda: pt.problems.fem_poisson_2d_unstructured(
@@ -187,6 +202,7 @@ BWS_CASES = {
     "wide": (lambda: _rect(1300, 5000, 1, 4.0, per_row=6),
              dict(use_rcm=False)),
     "spill": (_spill, dict(use_rcm=False)),
+    "long_rows": (_long_rows, dict(use_rcm=False, group_rows=8)),
     "multi_class": (lambda: pt.problems.fem_poisson_2d_unstructured(
         100, seed=3), dict(use_rcm=False)),
     "classes_tall": (lambda: _rect(20000, 5000, 0, 0.25, heavy=0.25),
@@ -196,7 +212,7 @@ BWS_CASES = {
     "classes_square": (lambda: _rect(20000, 20000, 2, 1.0, heavy=0.25),
                        dict(use_rcm=False)),
 }
-# the packs whose segment classes pay, so that bws_spmv runs K3 on them
+# the packs with several segment classes, which bws_spmv_by_class runs
 K3_CASES = ["multi_class", "classes_tall", "classes_wide", "classes_square"]
 
 
@@ -210,27 +226,34 @@ def _bws_pack(case, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k2_matches_twin(cuda, case, dtype):
     H, A = _bws_pack(case, dtype, cuda)
-    _check_bws(H, dataclasses.replace(A, s_classes=()), dtype, cuda, "K2")
+    _check_bws(H, A, dtype, cuda, "K2")
 
 
 @pytest.mark.parametrize("case", K3_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_matches_twin(cuda, case, dtype):
     H, A = _bws_pack(case, dtype, cuda)
-    assert tbws.use_classes(A) and len(A.s_classes) >= 2
+    assert len(A.s_classes) >= 2
     _check_bws(H, A, dtype, cuda, "K3")
+
+
+def _class_launches(A):
+    """K3 launches of one bws_spmv_by_class call: one per class with row
+    blocks."""
+    s = A.csr.class_starts
+    return sum(1 for c in range(len(s) - 1) if s[c + 1] > s[c])
 
 
 def _check_bws(H, A, dtype, cuda, path):
     x = torch.randn(A.n_cols, dtype=dtype, device=cuda)
     before = (tbws.bws_spmv_launches, tbws.bws_spmv_classes_launches)
-    y = tbws.bws_spmv(A, x)
+    y = (tbws.bws_spmv if path == "K2" else tbws.bws_spmv_by_class)(A, x)
     torch.cuda.synchronize()
     after = (tbws.bws_spmv_launches, tbws.bws_spmv_classes_launches)
-    if path == "K2":
+    if path == "K2":     # one launch per product, classes or not
         assert after == (before[0] + 1, before[1])
     else:
-        assert after == (before[0], before[1] + len(A.s_classes))
+        assert after == (before[0], before[1] + _class_launches(A))
     assert y.shape == (A.n_rows,) and y.device == x.device
     assert _rel(y, tbws.bws_spmv_torch(A, x)) <= BWS_RTOL[dtype]
     # and against the host product, in the pack's ordering
@@ -296,12 +319,48 @@ def test_pcg_bws_on_cuda_matches_cpu(cuda):
 
     tbws.bws_spmv_launches = tbws.bws_spmv_classes_launches = 0
     st = run(cuda)
-    assert tbws.bws_spmv_launches + tbws.bws_spmv_classes_launches > 0
+    assert tbws.bws_spmv_launches > 0 and tbws.bws_spmv_classes_launches == 0
     ref = run("cpu")
     assert st.success and st.reason == ref.reason
     assert abs(st.iters - ref.iters) <= 1
     x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
     assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-8
+
+
+@pytest.mark.parametrize("case", ["square_rcm", "wide", "long_rows",
+                                  "classes_tall"])
+def test_bws_layout_on_cuda_equals_cpu(cuda, case):
+    """The layout built on the card (searchsorted, unique, sorts there) is
+    the one built from the same tables on the CPU, bit for bit."""
+    from pysolvers_tpu_torch.sparse.bws import bws_device_csr
+    H, A = _bws_pack(case, torch.float64, cuda)
+    L = A.csr
+    ref = bws_device_csr(BwsMatrix.from_numpy(
+        *(getattr(A, f).cpu().numpy() for f in ("delta", "data", "lidx",
+                                                "perm", "iperm", "base")),
+        A.shape, A.win_blocks, A.group_rows, A.s_classes, A.gt,
+        device="cpu"))
+    for f in ("indptr", "indices", "values", "row_blocks", "class_blocks"):
+        assert torch.equal(getattr(L, f).cpu(), getattr(ref, f)), f
+    assert L.class_starts == ref.class_starts
+
+
+def test_bws_on_cuda_never_runs_the_twin(cuda, monkeypatch):
+    H, A = _bws_pack("multi_class", torch.float64, cuda)
+    x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+    want = tbws.bws_spmv_torch(A, x)
+    monkeypatch.setattr(tbws, "bws_spmv_torch", lambda *a: (
+        _ for _ in ()).throw(AssertionError("twin on CUDA")))
+    assert _rel(pt.matvec(A, x), want) <= 1e-12
+    assert _rel(tbws.bws_spmv_by_class(A, x), want) <= 1e-12
+    with pytest.raises(ValueError, match="contiguous"):
+        tbws.bws_spmv(A, torch.randn(2 * A.n_cols, dtype=torch.float64,
+                                     device=cuda)[::2])
+    # a CUDA matrix without its layout raises; nothing else runs it
+    object.__setattr__(A, "csr", None)
+    for fn in (tbws.bws_spmv, tbws.bws_spmv_by_class):
+        with pytest.raises(ValueError, match="layout"):
+            fn(A, x)
 
 
 # K4/K5: (nb, b, offsets, nb_pad) of random nonsymmetric planes, nonzero
@@ -381,14 +440,13 @@ def _sync_free_calls(name, cuda):
         return lambda: spmv.dia_spmv(A, x), (spmv, "dia_spmv_launches"), 1
     if name.startswith("bws_spmv"):
         H, A = _bws_pack("multi_class", torch.float64, cuda)
+        x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+        if name == "bws_spmv_by_class":
+            return (lambda: tbws.bws_spmv_by_class(A, x),
+                    (tbws, "bws_spmv_classes_launches"), _class_launches(A))
         if name == "bws_spmv_without_classes":
             A = dataclasses.replace(A, s_classes=())
-            counter, n = "bws_spmv_launches", 1
-        else:
-            assert tbws.use_classes(A)
-            counter, n = "bws_spmv_classes_launches", len(A.s_classes)
-        x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
-        return lambda: tbws.bws_spmv(A, x), (tbws, counter), n
+        return lambda: tbws.bws_spmv(A, x), (tbws, "bws_spmv_launches"), 1
     if name.startswith("bdia"):
         A = _bdia("b5_pad_gt_nb", torch.float64, cuda)
         if name == "bdia_spmv":
@@ -411,7 +469,7 @@ def _sync_free_calls(name, cuda):
 
 @pytest.mark.parametrize("name", [
     "dia_spmv", "bws_spmv_with_classes", "bws_spmv_without_classes",
-    "bdia_spmv", "bdia_spmm_rows", "grid_dia_spmv", "lane_gather_probe"])
+    "bws_spmv_by_class", "bdia_spmv", "bdia_spmm_rows", "grid_dia_spmv", "lane_gather_probe"])
 def test_wrapper_never_syncs(cuda, name):
     """A kernel wrapper launches and returns: no host round trip, so a
     solver loop of products never waits on the card (torch raises on any
