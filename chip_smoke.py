@@ -66,15 +66,41 @@ more (any failure raises and the script exits non-zero):
    (6 levels, f64, tau = 1e-10, no K6 at this width): PCG with
    ``GMGPreconditionerType`` (galerkin "host" and "device") and
    ``GMGVCycle(matrix_format="grid")``, checked on the host with scipy;
-15. the unstructured path under ``torch.profiler`` (last, since a
-   profiler session may leave host overhead on later launches): phase
-   7's re-solve (busy share, K2's share, launches per iteration) and the
-   device time alone of K2, K3 and the CSR call on its fine operator.
+16. GMRES + ILUT, ``solve()``'s nonsymmetric default: ``pt.solve(H, b,
+   tau=1e-10)`` with no method, preconditioner or device on
+   fd_convection_diffusion_2d(255) (n = 65,025), full GMRES with
+   level-scheduled ILUT solves and K1 for every product; within 5 % of the
+   JAX package's iteration count, the plans' level chunks, ms per ILUT
+   apply beside the bytes bound of the two solves;
+   16b. the same system by FGMRES with ``trisolve_mode="jacobi_bws"``:
+   one K2 launch per Jacobi-sweep product on the strict factor;
+17. PCG + IC(t), ``solve()``'s default for SPD n < 20,000, on
+   fd_laplacian_2d(129);
+18. GMRES + SA-AMG on phase 4's operator (n = 1,046,529) with MGS and with
+   CGS2: at most 10 iterations, ms per iteration (the median of five
+   frozen repeats) beside phase 4's PCG;
+19. the direct solve on the card: ``solve()`` with n = 484 and
+   ``DefaultDirect`` on a DiaMatrix, against scipy's ``spsolve``;
+20. the block lane's GMRES (K4) and its CG with the scalar IC(t), on
+   fd_vector_laplacian_2d(64, b=5, coupling=0.2) (n = 20,480);
+15. (run last, since a profiler session may leave host overhead on later
+   launches) the unstructured path under ``torch.profiler``: phase 7's
+   re-solve (busy share, K2's share, launches per iteration) and the
+   device time alone of K2, K3 and the CSR call on its fine operator;
+   then phase 16's solve capped at 40 iterations (busy share over the
+   median unprofiled wall, device ops per iteration, the shares of K1, of
+   MGS and of the ILUT applies).
+
+Phases 16-20 gate on a CONVERGED stop, a host residual <= 1e-9 (scipy)
+and the error against x* (1e-6; 1e-5 on the block lane), and print the
+iterations, ms per iteration, the kernel launches and the solution's
+device.
 
 Then one JSON line on the kernels (each with its bound from the bytes it
 must move and the operations it must do, and the time of the library
-call, which the port itself never makes), and last the device record
-``{"ok": true, "device": {...}}``.
+call, which the port itself never makes; ``launches`` counts the main
+path's run, ``path_launches`` the runs of phases 16-20), and last the
+device record ``{"ok": true, "device": {...}}``.
 
 ``--bws-sweep`` runs none of that: it builds copies of
 ``csrc/bws_spmv.cu`` with other sizes (threads per block, loads in flight
@@ -133,6 +159,21 @@ GRID_M, GRID_LEVELS = 10239, 10
 GRID_ERR_LIMIT = 1e-6
 # run_large.py's GMG configuration: m = 1023, _mg_levels(1023) = 6
 OO_GMG_M, OO_GMG_LEVELS = 1023, 6
+# phases 16-20, GMRES, ILU(t)/IC(t) and the direct solve: the problem sizes
+# and the iteration counts the JAX package takes for the same calls on the
+# CPU in f64 (tau = 1e-10, b = A x*, x* from default_rng(2)); the card must
+# land within ITERS_SLACK of them
+CD_M, CD_ITERS = 255, 617          # 16: fd_convection_diffusion_2d, GMRES+ILUT
+IC_M, IC_ITERS = 129, 140          # 17: fd_laplacian_2d, PCG + IC(t)
+GMRES_AMG_MAX_ITERS = 10           # 18: GMRES + SA-AMG at m = 1023 (JAX: 9)
+DIRECT_M = 22                      # 19: n = 484, solve()'s direct route
+DIRECT_ERR_LIMIT = 1e-12           # 19: against scipy's spsolve
+BLOCK_GMRES_M = 64                 # 20: the block lane at n = 20,480
+BLOCK_GMRES_ITERS, BLOCK_IC_ITERS = 205, 142
+ITERS_SLACK = 0.05
+# phase 16's solve under the profiler (phase 15), capped at this many
+# iterations
+PROFILE_MAXITER = 40
 KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv",
            "grid_dia_spmv")
 # K2's sizes for --bws-sweep: threads per block, loads in flight per
@@ -419,7 +460,8 @@ def check_solution(tag, H, b, x_star, st, device, err_limit=1e-6):
 
 
 def main_path(device, m=1023):
-    """Phase 4: run_large.py's SA configuration through the factory API."""
+    """Phase 4: run_large.py's SA configuration through the factory API.
+    Returns the K1 launches and the frozen re-solve's ms per iteration."""
     import torch
     import pysolvers_tpu_torch as pt
     from pysolvers_tpu_torch.ops import spmv
@@ -469,7 +511,7 @@ def main_path(device, m=1023):
              f"K1 launches={launches} host rel resid={resid:.3e} "
              f"err vs manufactured={err:.3e} re-solve iters={st2.iters} | "
              f"{card_line()}")
-    return launches
+    return launches, 1e3 * solve_s / st2.iters
 
 
 def front_end(device, m=150):
@@ -1263,8 +1305,12 @@ def check_k6(device, m=GRID_M):
 
 
 def profile_call(fn):
-    """Device busy share of one call of fn and its top device ops, from
-    torch.profiler's CUDA kernel self times over the call's wall time."""
+    """Device busy share of one call of fn and its top device ops: the
+    durations of the CUDA events torch.profiler records (kernels, memcpy,
+    memset; user ranges left out) over the call's wall time, summed by
+    name from the raw trace (``key_averages`` takes ~0.3 ms per event,
+    minutes on a level-scheduled solve's ~10^5 launches).  Returns (wall
+    s, device s, rows of (us, name, count) in descending time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1275,15 +1321,15 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", lambda: False)()):
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
+        us, count = agg.get(e.name(), (0.0, 0))
+        agg[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    rows = sorted(((us, name, count) for name, (us, count) in agg.items()),
+                  reverse=True)
     dev_s = sum(r[0] for r in rows) / 1e6
     return wall, dev_s, rows
 
@@ -1472,6 +1518,406 @@ def oo_gmg(device, m=OO_GMG_M, num_levels=OO_GMG_LEVELS):
                   f"({st2.iters} iters); launches {counts} | {card_line()}")
 
 
+def check_converged(tag, H, b, x_star, st, device, err_limit=1e-6):
+    """check_solution, and the stop reason must be CONVERGED."""
+    if st.reason.name != "CONVERGED":
+        raise SystemExit(f"{tag}: stopped {st.reason.name} after {st.iters} "
+                         "iterations")
+    return check_solution(tag, H, b, x_star, st, device, err_limit)
+
+
+def near(tag, iters, ref):
+    """The iteration count within ITERS_SLACK of the reference's."""
+    if abs(iters - ref) > ITERS_SLACK * ref:
+        raise SystemExit(f"{tag}: {iters} iterations, the JAX package's "
+                         f"{ref} (allowed {100 * ITERS_SLACK:g} %)")
+
+
+def wall_ms(fn, calls=5):
+    """Wall milliseconds per call of fn, synchronized (one untimed call
+    first): for host-bound calls such as the level-scheduled solves."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def peak_reset():
+    """Reset the peak-memory counter; returns the bytes allocated now."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_above(base):
+    """GB of the peak allocation since ``peak_reset`` above its base."""
+    import torch
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def plan_shape(plan):
+    """(level chunks, chunk width, ELL slots per row) of a TriSolvePlan."""
+    return (int(plan.levels.shape[0]), int(plan.levels.shape[1]),
+            int(plan.ell_data.shape[1]))
+
+
+def trisolve_bytes(plans):
+    """The bytes level-scheduled solves with ``plans`` must move at least:
+    each plan's ELL values and int32 columns and its diagonal, and three
+    vectors (b read, x written and read back by the next factor)."""
+    n = plans[0].n
+    size = plans[0].ell_data.element_size()
+    return sum(p.ell_data.numel() * (size + 4) + size * (n + 1)
+               for p in plans) + 3 * n * size
+
+
+def gmres_ilut(device):
+    """Phase 16: solve() with every argument but tau at its default on the
+    nonsymmetric convection-diffusion operator: full GMRES preconditioned by
+    ILUT with level-scheduled solves, K1 for the operator.  Returns the
+    problem and the numbers the kernels line and the profile need."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.linear import ilu
+    from pysolvers_tpu_torch.ops.trisolve import build_trisolve_plan
+    card = card_line()
+    H = pt.fd_convection_diffusion_2d(CD_M)
+    n = H.shape[0]
+    x_star = np.random.default_rng(2).random(n)
+    b = H.matvec(x_star)
+    base = peak_reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = pt.solve(H, b, tau=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = peak_above(base)
+    resid, err = check_converged("phase 16", H, b, x_star, st, device)
+    near("phase 16", st.iters, CD_ITERS)
+    # one product per iteration, one at the start, one true residual
+    if counts["K1"] != st.iters + 2:
+        raise SystemExit(f"phase 16: launches {counts}, {st.iters} iters")
+    # the same preconditioner formed alone: its setup, plans and applies
+    t0 = time.perf_counter()
+    L, U = ilu.ilut_factor(H, 1e-3 * ilu._AUTO_SEED, 15.0)
+    factor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plans = (build_trisolve_plan(L, lower=True, unit_diag=True,
+                                 device=device),
+             build_trisolve_plan(U, lower=False, device=device))
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    prec = pt.ILUTPreconditionerType().form(H, device=device)
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
+                        device=device)
+    apply_ms = wall_ms(lambda: prec.apply_any(v))
+    nbytes = trisolve_bytes(plans)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    phase(16, f"solve(fd_convection_diffusion_2d({CD_M}), b, tau=1e-10) "
+              f"n={n}, defaults (GMRES + ILUT, level solves): iters="
+              f"{st.iters} (JAX {CD_ITERS}) reason={st.reason.name} host rel "
+              f"resid={resid:.3e} err vs x*={err:.3e}; wall {wall:.3f} s = "
+              f"{1e3 * wall / st.iters:.3f} ms/iter (setup included: ILUT "
+              f"factor {factor_s:.3f} s, plans {plans_s:.3f} s); solution on "
+              f"{st.soln.device}; launches {counts} (K1 per solve "
+              f"{counts['K1']}); peak device memory {peak:.3f} GB above "
+              f"the phase's start | {card}")
+    phase(16, f"ILUT factors: L nnz={L.nnz} (n={n}), U nnz={U.nnz}; level "
+              f"plans (chunks, width, ELL slots): L {plan_shape(plans[0])}, "
+              f"U {plan_shape(plans[1])}; one ILUT apply {apply_ms:.3f} ms "
+              f"wall, bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s)")
+    return dict(H=H, b=b, x_star=x_star, iters=st.iters, K1=counts["K1"],
+                apply_ms=apply_ms, L=L, U=U, plans=plans, wall=wall)
+
+
+def gmres_jacobi_bws(p16, device):
+    """Phase 16b: the same system by FGMRES with ILUT applied by Jacobi
+    sweeps whose products run on the strict factors packed as BWS (K2).
+    Flexible: the f32 sweeps make the apply inexact at ~1e-7, which
+    non-flexible GMRES (x = M(Q y)) reports as TRUE_RESID_MISMATCH at tau
+    = 1e-10.  Returns the K1 and K2 launches."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    H, b, x_star, L, U = (p16[k] for k in ("H", "b", "x_star", "L", "U"))
+    n = H.shape[0]
+    prec = pt.ILUTPreconditionerType(trisolve_mode="jacobi_bws")
+    solver = pt.GMRES(pt.CommonSolverArgs(maxiter=1000, tau=1e-10),
+                      precond=prec, flexible=True, device=device).make_solver()
+    base = peak_reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = solver.solve(H, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = peak_above(base)
+    resid, err = check_converged("phase 16b", H, b, x_star, st, device)
+    # sweeps - 1 products per factor with off-diagonal entries, one apply
+    # per iteration (FGMRES forms x from Z)
+    per_apply = (prec.sweeps - 1) * (int(L.nnz > n) + int(U.nnz > n))
+    if (counts["K2"] != per_apply * st.iters
+            or counts["K1"] != st.iters + 2):
+        raise SystemExit(f"phase 16b: launches {counts}, {st.iters} iters, "
+                         f"{per_apply} sweep products per apply")
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
+                        device=device)
+    apply_ms = wall_ms(lambda: solver._formed_prec.apply_any(v))
+    phase("16b", f"FGMRES + ILUT(trisolve_mode='jacobi_bws', sweeps="
+                 f"{prec.sweeps}) same system: iters={st.iters} reason="
+                 f"{st.reason.name} host rel resid={resid:.3e} err vs x*="
+                 f"{err:.3e}; wall {wall:.3f} s = {1e3 * wall / st.iters:.3f} "
+                 f"ms/iter; one apply {apply_ms:.3f} ms wall; K2 launches "
+                 f"{counts['K2']} = {per_apply} sweep products x {st.iters} "
+                 f"applies; launches {counts}; solution on {st.soln.device}; "
+                 f"peak device memory {peak:.3f} GB above the phase's start "
+                 f"| {card_line()}")
+    return dict(K1=counts["K1"], K2=counts["K2"])
+
+
+def pcg_ic(device):
+    """Phase 17: solve() with its defaults on fd_laplacian_2d(129) (SPD,
+    n < 20,000): PCG + IC(t) with level solves, K1.  Returns the K1
+    launches."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.linear import ilu
+    from pysolvers_tpu_torch.ops.trisolve import build_trisolve_plan
+    H = pt.problems.fd_laplacian_2d(IC_M)
+    n = H.shape[0]
+    x_star = np.random.default_rng(2).random(n)
+    b = H.matvec(x_star)
+    reset_launches()
+    t0 = time.perf_counter()
+    st = pt.solve(H, b, tau=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    resid, err = check_converged("phase 17", H, b, x_star, st, device)
+    near("phase 17", st.iters, IC_ITERS)
+    if counts["K1"] != st.iters + 1:
+        raise SystemExit(f"phase 17: launches {counts}, {st.iters} iters")
+    Lc = ilu.ict_factor(H, 1e-3 * ilu._AUTO_SEED)
+    plans = (build_trisolve_plan(Lc, lower=True, device=device),
+             build_trisolve_plan(Lc.transpose(), lower=False, device=device))
+    prec = pt.ICPreconditionerType().form(H, device=device)
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
+                        device=device)
+    apply_ms = wall_ms(lambda: prec.apply_any(v))
+    phase(17, f"solve(fd_laplacian_2d({IC_M}), b, tau=1e-10) n={n}, "
+              f"defaults (PCG + IC(t)): iters={st.iters} (JAX {IC_ITERS}) "
+              f"reason={st.reason.name} host rel resid={resid:.3e} err vs "
+              f"x*={err:.3e}; wall {wall:.3f} s = "
+              f"{1e3 * wall / st.iters:.3f} ms/iter (setup included); IC "
+              f"factor nnz={Lc.nnz} ({Lc.nnz / n:.2f} per row), plans L "
+              f"{plan_shape(plans[0])} Lt {plan_shape(plans[1])}, one apply "
+              f"{apply_ms:.3f} ms wall, bound "
+              f"{1e3 * trisolve_bytes(plans) / HBM_BYTES_PER_S:.4f} ms; "
+              f"launches {counts}; solution on {st.soln.device} | "
+              f"{card_line()}")
+    return counts["K1"]
+
+
+def gmres_amg(device, pcg_ms, m=1023):
+    """Phase 18: GMRES preconditioned by SA-AMG on phase 4's operator and
+    right-hand side, with MGS and CGS2 (Q allocated (501, n) as in the JAX
+    package).  Returns the K1 launches of each first solve."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    H = pt.problems.fd_laplacian_2d(m)
+    x_star = np.random.default_rng(2).random(H.shape[0])
+    b = H.matvec(x_star)
+    out = {}
+    for orthog in ("mgs", "cgs2"):
+        solver = pt.GMRES(pt.CommonSolverArgs(maxiter=500, tau=1e-10),
+                          precond=pt.AMGPreconditionerType(num_iters=2,
+                                                           num_levels=6),
+                          orthog=orthog, device=device).make_solver()
+        base = peak_reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        st = solver.solve(H, b)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = launches()
+        resid, err = check_converged(f"phase 18 {orthog}", H, b, x_star, st,
+                                     device)
+        if st.iters > GMRES_AMG_MAX_ITERS or counts["K1"] <= 0:
+            raise SystemExit(f"phase 18 {orthog}: {st.iters} iterations "
+                             f"(at most {GMRES_AMG_MAX_ITERS}), launches "
+                             f"{counts}")
+        solver.freeze_matrix()
+        solver.freeze_prec()
+        walls = []                  # the median of five frozen repeats
+        for _ in range(5):
+            t0 = time.perf_counter()
+            st2 = solver.solve(H, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        repeat_s = statistics.median(walls)
+        peak = peak_above(base)
+        phase(18, f"GMRES(maxiter=500, orthog={orthog!r}) + AMG(num_iters=2,"
+                  f" num_levels=6) fd_laplacian_2d({m}) n={H.shape[0]} f64: "
+                  f"iters={st.iters} (JAX 9) reason={st.reason.name} host rel "
+                  f"resid={resid:.3e} err vs x*={err:.3e}; first call "
+                  f"{first_s:.3f} s (AMG setup included), frozen repeat "
+                  f"{repeat_s:.6f} s, the median of "
+                  f"{[round(w, 6) for w in walls]}, = "
+                  f"{1e3 * repeat_s / st2.iters:.3f} ms/iter"
+                  f" (phase 4's PCG: {pcg_ms:.3f} ms/iter); launches {counts};"
+                  f" solution on {st.soln.device}; peak device memory "
+                  f"{peak:.3f} GB above the phase's start | {card_line()}")
+        out[orthog] = counts["K1"]
+    return out
+
+
+def direct(device):
+    """Phase 19: solve() on an n <= 500 system takes the dense direct solve
+    on the card; DefaultDirect on a DiaMatrix on the card; both against
+    scipy's sparse LU."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+    import pysolvers_tpu_torch as pt
+    H = pt.problems.fd_laplacian_2d(DIRECT_M)
+    x_star = np.random.default_rng(2).random(H.shape[0])
+    b = H.matvec(x_star)
+    x_ref = spla.spsolve(sp.csc_matrix(sp.csr_matrix(
+        (H.data, H.indices, H.indptr), shape=H.shape)), b)
+    for tag, A, call in (
+            ("solve(HostCSR)", H, lambda A: pt.solve(A, b)),
+            ("DefaultDirect(DiaMatrix)",
+             pt.DiaMatrix.from_host_csr(H, device=device),
+             lambda A: pt.DefaultDirect().make_solver().solve(A, b))):
+        reset_launches()
+        t0 = time.perf_counter()
+        st = call(A)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        resid, err = check_converged(f"phase 19 {tag}", H, b, x_star, st,
+                                     device)
+        rel = float(np.linalg.norm(st.soln.cpu().numpy() - x_ref)
+                    / np.linalg.norm(x_ref))
+        if st.iters != 1 or rel > DIRECT_ERR_LIMIT:
+            raise SystemExit(f"phase 19 {tag}: iters={st.iters}, rel err "
+                             f"against spsolve {rel:.3e}")
+        phase(19, f"{tag} fd_laplacian_2d({DIRECT_M}) n={H.shape[0]}: "
+                  f"direct (iters=1) in {1e3 * wall:.3f} ms; rel err against "
+                  f"scipy spsolve {rel:.3e} (limit {DIRECT_ERR_LIMIT:g}), "
+                  f"host rel resid={resid:.3e}; launches {counts}; solution "
+                  f"on {st.soln.device} | {card_line()}")
+
+
+def block_gmres_ic(device, m=BLOCK_GMRES_M):
+    """Phase 20: the block lane's GMRES (K4 for the operator, block-Jacobi
+    on the right) and its CG with the scalar IC(t) of the host CSR view.
+    Returns the K4 launches of the GMRES solve."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    H = pt.fd_vector_laplacian_2d(m, b=BLOCK_B, coupling=BLOCK_COUPLING)
+    x_star = np.random.default_rng(2).random(H.shape[0])
+    b = H.matvec(x_star)
+    A = pt.BdiaMatrix.from_host_csr(H, BLOCK_B, device=device)
+    out = {}
+    for method, precond, ref in (("gmres", "auto", BLOCK_GMRES_ITERS),
+                                 ("auto", "ic", BLOCK_IC_ITERS)):
+        base = peak_reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        st = pt.solve(A, b, tau=1e-10, method=method, precond=precond)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        peak = peak_above(base)
+        tag = f"phase 20 method={method} precond={precond}"
+        resid, err = check_converged(tag, H, b, x_star, st, device,
+                                     BLOCK_ERR_LIMIT)
+        near(tag, st.iters, ref)
+        # GMRES: one product per iteration, one at the start, one true
+        # residual; CG: one per iteration and one at the start
+        if counts["K4"] != st.iters + (2 if method == "gmres" else 1):
+            raise SystemExit(f"{tag}: launches {counts}, {st.iters} iters")
+        phase(20, f"solve(BdiaMatrix fd_vector_laplacian_2d({m}, b="
+                  f"{BLOCK_B}), b, tau=1e-10, method={method!r}, precond="
+                  f"{precond!r}) n={H.shape[0]}: iters={st.iters} (JAX {ref})"
+                  f" reason={st.reason.name} host rel resid={resid:.3e} err "
+                  f"vs x*={err:.3e}; wall {wall:.3f} s = "
+                  f"{1e3 * wall / st.iters:.3f} ms/iter (setup included); "
+                  f"launches {counts}; solution on {st.soln.device}; peak "
+                  f"device memory {peak:.3f} GB above the phase's start | "
+                  f"{card_line()}")
+        out[method] = counts["K4"]
+    return out["gmres"]
+
+
+def profile_gmres_ilut(p16, device):
+    """Phase 15, second part: phase 16's solve capped at PROFILE_MAXITER
+    iterations (preconditioner formed beforehand) under torch.profiler:
+    busy share, device ops per iteration, and the shares of K1, of MGS
+    (the dot and addcmul kernels only it launches) and of the ILUT applies
+    (the same applies profiled alone)."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    H, b = p16["H"], p16["b"]
+    solver = pt.GMRES(pt.CommonSolverArgs(maxiter=PROFILE_MAXITER, tau=1e-10,
+                                          failOnMaxiter=False),
+                      precond=pt.ILUTPreconditionerType(),
+                      device=device).make_solver()
+    solver.freeze_matrix()
+    solver.freeze_prec()
+    solver.solve(H, b)                   # forms the factors and the plans
+    walls = []                           # the median of three, unprofiled
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solver.solve(H, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    solve_ms = 1e3 * statistics.median(walls)
+    wall, dev_s, rows = profile_call(lambda: solver.solve(H, b))
+    if not rows:
+        phase(15, "profiled GMRES + ILUT: the profiler saw no device time "
+                  "(shares not measured)")
+        return
+    iters = PROFILE_MAXITER
+    applies = iters + 1                  # one per iteration, one to form x
+    prec = solver._formed_prec
+    v = torch.as_tensor(b, device=device)
+    apply_wall, apply_dev_s, apply_rows = profile_call(
+        lambda: [prec.apply_any(v) for _ in range(applies)])
+    k1_us = sum(us for us, k, _ in rows if "dia_spmv" in k)
+    mgs = ("dot_kernel", "reduce_1Block", "addcmul")
+    mgs_us = sum(us for us, k, _ in rows if any(t in k for t in mgs))
+    ops = sum(c for _, _, c in rows)
+    top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{c}"
+                    for us, k, c in rows[:6])
+    # busy share over the unprofiled wall: the profiler's host cost per
+    # launch (thousands per iteration here) inflates the profiled one
+    phase(15, f"profiled GMRES + ILUT (phase 16's system, {iters} "
+              f"iterations): unprofiled wall {solve_ms:.3f} ms, the median "
+              f"of {[round(1e3 * w, 3) for w in walls]}; device "
+              f"{1e3 * dev_s:.3f} ms, busy {100e3 * dev_s / solve_ms:.1f} % "
+              f"of the unprofiled wall ({100 * dev_s / wall:.1f} % of the "
+              f"profiled wall {1e3 * wall:.3f} ms); {ops / iters:.1f} device "
+              f"ops per "
+              f"iteration; K1 {k1_us / 1e3:.3f} ms = "
+              f"{100 * k1_us / 1e6 / dev_s:.1f} % of device time; MGS "
+              f"(dot, addcmul) {mgs_us / 1e3:.3f} ms = "
+              f"{100 * mgs_us / 1e6 / dev_s:.1f} %; top device ops: {top}")
+    phase(15, f"the {applies} ILUT applies alone: wall "
+              f"{1e3 * apply_wall:.3f} ms profiled "
+              f"({applies * p16['apply_ms']:.3f} ms unprofiled = "
+              f"{100 * applies * p16['apply_ms'] / solve_ms:.1f} % of the "
+              f"unprofiled solve), device {1e3 * apply_dev_s:.3f} ms = "
+              f"{100 * apply_dev_s / dev_s:.1f} % of the solve's device time,"
+              f" {sum(c for _, _, c in apply_rows) / applies:.1f} device ops "
+              f"per apply | {card_line()}")
+
+
 def build_bws_variant(spec):
     """(spec, library, ptxas registers) of a copy of csrc/bws_spmv.cu with
     the sizes of ``spec`` ("THREADS,UNROLL,EVICT_FIRST"), built under
@@ -1603,7 +2049,7 @@ def main():
     build_kernels()
 
     rec_k1 = check_k1("cuda")
-    k1_launches = main_path("cuda")
+    k1_launches, pcg_ms = main_path("cuda")
     front_end("cuda")
     rec_k7 = probe_k7("cuda")
     num_levels = 4
@@ -1620,17 +2066,31 @@ def main():
     rec_k6 = fine.pop("rec")
     counts_grid = grid_path(fine, "cuda")
     oo_gmg("cuda")
+    p16 = gmres_ilut("cuda")
+    p16b = gmres_jacobi_bws(p16, "cuda")
+    k1_p17 = pcg_ic("cuda")
+    k1_p18 = gmres_amg("cuda", pcg_ms)
+    direct("cuda")
+    k4_p20 = block_gmres_ic("cuda")
     profile_unstructured(path, fine32, rec_bws)
     del path, fine32
+    k1_p16 = p16["K1"]
+    profile_gmres_ilut(p16, "cuda")
+    del p16
 
     src = "pysolvers_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         dict(name="dia_spmv", route="cuda", source=src + "dia_spmv.cu",
              replaces="pysolvers_tpu/ops/spmv.py:197",
-             launches=k1_launches, **rec_k1),
+             launches=k1_launches, **rec_k1,
+             path_launches={"phase 16": k1_p16, "phase 16b": p16b["K1"],
+                            "phase 17": k1_p17,
+                            "phase 18 mgs": k1_p18["mgs"],
+                            "phase 18 cgs2": k1_p18["cgs2"]}),
         dict(name="bws_spmv", route="cuda", source=src + "bws_spmv.cu",
              replaces="pysolvers_tpu/ops/bws_spmv.py:212",
-             launches=counts["K2"], **rec_bws["K2"]),
+             launches=counts["K2"], **rec_bws["K2"],
+             path_launches={"phase 16b": p16b["K2"]}),
         # K3 serves bws_spmv_by_class, which no solve path calls: phase 7
         # checks that it made no launch there
         dict(name="bws_spmv_classes", route="cuda",
@@ -1643,7 +2103,8 @@ def main():
              launches=rec_k7.pop("launches"), **rec_k7),
         dict(name="bdia_spmv", route="cuda", source=src + "bdia_spmv.cu",
              replaces="pysolvers_tpu/ops/spmv.py:308",
-             launches=k4_launches, **rec_bdia["K4"]),
+             launches=k4_launches, **rec_bdia["K4"],
+             path_launches={"phase 20 gmres": k4_p20}),
         dict(name="bdia_spmm", route="cuda", source=src + "bdia_spmv.cu",
              replaces="pysolvers_tpu/ops/spmv.py:505",
              launches=k5_launches, **rec_bdia["K5"]),

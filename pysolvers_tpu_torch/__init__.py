@@ -10,18 +10,23 @@ the block-DIA lane of ``solve()`` (single- and multi-RHS), whose
 block operators are applied by K4/K5 (``csrc/bdia_spmv.cu``), and
 structured-grid geometric multigrid (host-Galerkin and device-probed grid
 hierarchies), whose stencils on grids of m >= 4096 are applied by K6
-(``csrc/grid_dia_spmv.cu``).
+(``csrc/grid_dia_spmv.cu``).  ``solve(A, b)`` runs with its defaults on
+every system: the direct solve for n <= 500, PCG + IC(t) for medium SPD
+systems, GMRES + ILUT for nonsymmetric ones (``api.GMRES``,
+``api.DefaultDirect``, ``linear/ilu.py``), and ``LinearOperator``
+composes and inverts operators.
 
 Layers (bottom-up):
   sparse/    host CSR + device DIA/ELL/BWS/block-DIA containers
   ops/       SpMV and SpMM (K1, K2/K3, K4/K5, K6 and their plain twins,
              ELL gather, DIA SpMM), the K7 lane-index probe, triangular
              solves, the nvcc build of ``csrc/``
-  linear/    CG (single- and lockstep multi-RHS), Identity/Jacobi/
-             Chebyshev preconditioners, SA- and RS-AMG, geometric MG
-             (sparse and structured-grid executors), block preconditioners
-  problems/  FD (scalar and vector) Laplacians, unstructured FEM and
-             graph Laplacians
+  linear/    CG (single- and lockstep multi-RHS), GMRES(m)/FGMRES,
+             Arnoldi, Identity/Jacobi/Chebyshev, ILU(t)/IC(t), SA- and
+             RS-AMG, geometric MG (sparse and structured-grid executors),
+             block preconditioners, operator algebra
+  problems/  FD (scalar and vector) Laplacians, convection-diffusion,
+             unstructured FEM and graph Laplacians
   api        factory types, config, SolveStatus (reference API surface)
   solve      one-call front end
   convert    builds the port's objects from the JAX package's arrays
@@ -33,11 +38,14 @@ from . import ops, problems, sparse, linear
 from .core import SolverConfig, SolveStatus, StopReason
 from .sparse import HostCSR, EllMatrix, DiaMatrix, BwsMatrix, BdiaMatrix
 from .ops import matvec, matmat, GridDiaMatrix
-from .linear import cg_solve
-from .problems import fd_vector_laplacian_2d
+from .linear import cg_solve, gmres_solve
+from .problems import fd_convection_diffusion_2d, fd_vector_laplacian_2d
 from . import api
-from .api import (CommonSolverArgs, PCG, LinearSolverType,
-                  IterativeLinearSolverType, as_device_matrix)
+from .api import (CommonSolverArgs, PCG, GMRES, DefaultDirect,
+                  LinearSolverType, IterativeLinearSolverType,
+                  as_device_matrix)
+from .linear.ilu import ILUTPreconditionerType, ICPreconditionerType
+from .linear.operator import LinearOperator
 from .linear.preconditioner import (IdentityPreconditionerType,
                                     JacobiPreconditionerType,
                                     ChebyshevPreconditionerType)
@@ -47,13 +55,20 @@ from .linear.gmg_grid import (GridHierarchy, build_grid_hierarchy,
                               build_grid_hierarchy_device, v_cycle_grid)
 from .solve import solve
 
+# reference-style aliases (ILUTPreconditioner.py:10-31, ICPreconditioner.py:20-29)
+RightILUT = ILUTPreconditionerType
+LeftILUT = lambda *a, **k: ILUTPreconditionerType(*a, side="left", **k)  # noqa: E731
+RightIC = ICPreconditionerType
+
 __all__ = [
     "SolverConfig", "SolveStatus", "StopReason", "CommonSolverArgs",
     "HostCSR", "EllMatrix", "DiaMatrix", "BwsMatrix", "BdiaMatrix",
-    "GridDiaMatrix", "matvec", "matmat", "cg_solve",
-    "fd_vector_laplacian_2d",
-    "PCG", "LinearSolverType", "IterativeLinearSolverType",
-    "as_device_matrix",
+    "GridDiaMatrix", "matvec", "matmat", "cg_solve", "gmres_solve",
+    "fd_convection_diffusion_2d", "fd_vector_laplacian_2d",
+    "PCG", "GMRES", "DefaultDirect", "LinearSolverType",
+    "IterativeLinearSolverType", "as_device_matrix",
+    "ILUTPreconditionerType", "ICPreconditionerType", "RightILUT",
+    "LeftILUT", "RightIC", "LinearOperator",
     "IdentityPreconditionerType", "JacobiPreconditionerType",
     "ChebyshevPreconditionerType",
     "AMG", "AMGPreconditionerType", "AMGVCycle", "GMGVCycle",

@@ -8,11 +8,15 @@ Parity map (reference → here):
   freezeMatrix/unfreezeMatrix (LinearSolver.py:35-42)→ same (snake_case + camelCase aliases)
   freezePrec/unfreezePrec (IterativeLinearSolver.py:79-86) → same
   PCG/PCGSolver (PCGSolver.py:25-145)              → PCG / PCGSolver
+  GMRES/GMRESSolver (GMRESSolver.py:27-180)        → GMRES / GMRESSolver
+  DefaultDirect (DefaultDirectSolver.py:23-74)     → DefaultDirect / solver
   mvmult (IterativeLinearSolver.py:94-106)         → pysolvers_tpu_torch.ops.matvec
 
 Matrices may be passed as HostCSR (packed to the best device format on the
 solver's ``device``), as a DiaMatrix/EllMatrix/BwsMatrix, as a dense array
-or tensor, or as a (host, device) pair for full control.  The unstructured
+or tensor, as a matrix-free operator (an object with ``ndim == 2`` and
+``@``, e.g. ``linear/operator.py``), or as a (host, device) pair for full
+control.  The unstructured
 (BWS) lane takes a pair: ``PCG(...).make_solver().solve((A_host, A_bws),
 b)``, with ``A_bws = BwsMatrix.from_host_csr(A_host, use_rcm=False,
 device=...)`` packed on the already reordered matrix; an AMG
@@ -21,11 +25,11 @@ level.  ``solve()`` never picks BWS at native precision, as in the JAX
 package.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP slice):
-``precision="mixed"`` (slice 7), ``mesh=`` (slice 12), multi-RHS solves
-(slice 10), matrix-free operators, GMRES and the direct solver (slice 8).
-Eager PyTorch needs no compiled-graph cache, so the JAX solver's
-identity-keyed jit caches are gone; the preconditioner freeze semantics
-stay.
+``precision="mixed"`` (slice 7), ``mesh=`` (slice 12) and multi-RHS solves
+(slice 10).  Eager PyTorch needs no compiled-graph cache, so the JAX
+solver's identity-keyed jit caches are gone; the preconditioner freeze
+semantics stay.  ``DefaultDirectSolver`` has no host-LAPACK fallback (the
+JAX package's workaround for TPU runtimes without the linalg calls).
 """
 from __future__ import annotations
 
@@ -34,8 +38,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core import SolverConfig, SolveStatus, make_status
-from .linear.krylov import cg_solve
+from .core import SolverConfig, SolveStatus, StopReason, make_status
+from .linear.krylov import cg_solve, gmres_solve
 from .linear.preconditioner import (IdentityPreconditionerType,
                                     Preconditioner, PreconditionerType)
 from .ops import matvec
@@ -58,8 +62,9 @@ def CommonSolverArgs(maxiter: int = 100, tau: float = 1e-8,
 
 def as_device_matrix(A, dtype=None, device=None):
     """Pick the best device format for a matrix: DIA for banded stencils,
-    ELL otherwise, on ``device`` (None: the current CUDA device).  Returns
-    (A_host or None, A_dev)."""
+    ELL otherwise, on ``device`` (None: the current CUDA device); a
+    matrix-free operator passes through.  Returns (A_host or None,
+    A_dev)."""
     if isinstance(A, (EllMatrix, DiaMatrix, BwsMatrix)):
         return None, A
     if isinstance(A, HostCSR):
@@ -70,8 +75,7 @@ def as_device_matrix(A, dtype=None, device=None):
         return None, torch.as_tensor(A, dtype=torch_dtype(dtype),
                                      device=resolve_device(device))
     if hasattr(A, "__matmul__") and getattr(A, "ndim", None) == 2:
-        raise NotImplementedError("matrix-free operators are not ported yet "
-                                  "(ROADMAP slice 8, linear/operator.py)")
+        return None, A   # matrix-free operator (e.g. operator.LinearOperator)
     raise TypeError(f"cannot convert {type(A)} to a device matrix")
 
 
@@ -261,3 +265,166 @@ class PCGSolver(IterativeLinearSolver):
             iter_callback=_iter_printer(control, "PCG"))
         return make_status(x, st, control, history=hist,
                            live_reported=control.show_iters)
+
+
+# ---------------------------------------------------------------------------
+# GMRES
+# ---------------------------------------------------------------------------
+
+class GMRES(IterativeLinearSolverType):
+    """Factory for right-preconditioned GMRES (reference
+    GMRESSolver.py:27-40).  The reference never restarts (m = maxiter);
+    ``restart`` adds GMRES(m), ``flexible`` FGMRES, ``orthog`` "mgs" or
+    "cgs2" (``linear/krylov.py::gmres_solve``)."""
+
+    def __init__(self, control: Optional[SolverConfig] = None,
+                 precond: Optional[PreconditionerType] = None,
+                 restart: Optional[int] = None, flexible: bool = False,
+                 orthog: str = "mgs", precision: str = "native", mesh=None,
+                 device=None):
+        super().__init__(control, precond, precision=precision, mesh=mesh,
+                         device=device)
+        if orthog not in ("mgs", "cgs2"):
+            raise ValueError(f"orthog must be 'mgs' or 'cgs2', got "
+                             f"{orthog!r}")
+        self.restart = restart
+        self.flexible = flexible
+        self.orthog = orthog
+
+    def make_solver(self):
+        return GMRESSolver(self.control, self.precond, self.restart,
+                           self.flexible, self.orthog, device=self.device)
+
+    makeSolver = make_solver
+
+
+class GMRESSolver(IterativeLinearSolver):
+    def __init__(self, control, precond_type, restart=None, flexible=False,
+                 orthog="mgs", device=None):
+        super().__init__(control, precond_type, device=device)
+        self.restart = restart
+        self.flexible = flexible
+        self.orthog = orthog
+
+    def solve(self, A, b) -> SolveStatus:
+        if np.ndim(b) == 2:
+            raise NotImplementedError("multi-RHS solves are not ported yet "
+                                      "(ROADMAP slice 10)")
+        A_host, A_dev = self._split_matrix(A)
+        if isinstance(A_dev, BwsMatrix):
+            _check_bws_operator(A_dev, self.device)
+        b = torch.as_tensor(b, dtype=getattr(A_dev, "dtype", None),
+                            device=self.device)
+        prec = self._get_precond(A_host, A_dev)
+        control = self.control
+        norm = control.norm_fn()
+        # a generic (side="both") preconditioner is ONE apply usable on
+        # either side: GMRES applies it once, on the right
+        left = None if prec.generic else prec.left
+        mv = lambda v: matvec(A_dev, v)          # noqa: E731
+        if left is not None:
+            # left preconditioning solves M_L⁻¹A x = M_L⁻¹b (reference
+            # LeftPreconditioner, Preconditioner.py:39-45)
+            mv_eff, b_eff = (lambda v: left(mv(v))), left(b)
+        else:
+            mv_eff, b_eff = mv, b
+        x, st, hist = gmres_solve(
+            mv_eff, b_eff, maxiter=control.maxiter, restart=self.restart,
+            tau=self._effective_tau(), precond=prec.right, norm_fn=norm,
+            orthog=self.orthog, flexible=self.flexible,
+            iter_callback=_iter_printer(control, "GMRES"))
+        if left is not None:
+            # report the true residual of the original system
+            st = st._replace(resid=norm(b - mv(x)))
+        return make_status(x, st, control, history=hist,
+                           live_reported=control.show_iters)
+
+
+# ---------------------------------------------------------------------------
+# Direct solver (reference DefaultDirectSolver.py:23-74)
+# ---------------------------------------------------------------------------
+
+class DefaultDirect(LinearSolverType):
+    """Factory for the dense direct solve on ``device`` (None: the current
+    CUDA device)."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def make_solver(self):
+        return DefaultDirectSolver(device=self.device)
+
+    makeSolver = make_solver
+
+
+class DefaultDirectSolver(LinearSolver):
+    """Dense solve on the solver's device (``torch.linalg.solve``, LU with
+    partial pivoting).
+
+    Sparse inputs are densified: the direct solver's role (as in the
+    reference's AMG coarse solve, VCycleManager.py:36) is small systems.
+    A HostCSR is densified on the host and uploaded; a DiaMatrix or
+    EllMatrix on its own device, which must be the solver's.  Errors,
+    a singular matrix among them, come back as a failed SolveStatus
+    (reference DefaultDirectSolver.py:72-74).
+    """
+
+    DENSIFY_LIMIT = 20_000
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+
+    def solve(self, A, b) -> SolveStatus:
+        try:
+            if isinstance(A, tuple):
+                A = A[0] if A[0] is not None else A[1]
+            if isinstance(A, (HostCSR, EllMatrix, DiaMatrix)) and \
+                    A.shape[0] > self.DENSIFY_LIMIT:
+                raise ValueError(
+                    f"direct solve of n={A.shape[0]} sparse system "
+                    "exceeds densify limit; use an iterative solver")
+            if isinstance(A, HostCSR):
+                Ad = torch.as_tensor(A.to_dense(), device=self.device)
+            elif isinstance(A, (EllMatrix, DiaMatrix)):
+                if not same_device(A.device, self.device):
+                    raise ValueError(f"the matrix is on {A.device}, the "
+                                     f"solver on {self.device}")
+                Ad = _densify_device(A)
+            else:
+                Ad = torch.as_tensor(A, device=self.device)
+            b = torch.as_tensor(b, dtype=Ad.dtype, device=Ad.device)
+            x = torch.linalg.solve(Ad, b)
+            resid = float(torch.linalg.vector_norm(Ad @ x - b))
+            st = SolveStatus(success=bool(np.isfinite(resid)), soln=x,
+                             resid=resid, iters=1)
+            if not st.success:
+                st.reason = StopReason.BREAKDOWN
+                st.msg = "non-finite residual from direct solve"
+            return st
+        except Exception as e:  # parity: wrap errors in a failed status
+            return SolveStatus(success=False, soln=None, resid=np.inf,
+                               iters=0, reason=StopReason.BREAKDOWN,
+                               msg=f"exception in direct solve: {e}")
+
+
+def _densify_device(A):
+    """The dense (n_rows, n_cols) tensor of a DiaMatrix or EllMatrix, built
+    on its device."""
+    if isinstance(A, DiaMatrix):
+        n, m = A.shape
+        out = torch.zeros((n, m), dtype=A.dtype, device=A.device)
+        for d, off in enumerate(A.offsets):
+            i = torch.arange(max(0, -off), min(n, m - off), device=A.device)
+            out[i, i + off] = A.diags[d, i]
+        return out
+    if isinstance(A, EllMatrix):
+        rows = torch.arange(A.n_rows_pad, device=A.device).repeat_interleave(
+            A.k)
+        # one column past the real ones takes the padding slots' zeros
+        out = torch.zeros((A.n_rows_pad, max(A.n_cols_pad, A.n_cols + 1)),
+                          dtype=A.dtype, device=A.device)
+        out.index_put_((rows, A.cols.reshape(-1).to(torch.int64)),
+                       A.data.reshape(-1), accumulate=True)
+        return out[: A.n_rows, : A.n_cols]
+    raise TypeError(type(A))

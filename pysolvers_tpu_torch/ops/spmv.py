@@ -29,7 +29,9 @@ Port of ``pysolvers_tpu/ops/spmv.py``:
 * ``matvec`` — dispatch by format; a ``BwsMatrix`` goes to ``bws_spmv``
   (kernel K2, ``ops/bws_spmv.py``) in the pack's ordering, a
   ``BdiaMatrix`` to ``bdia_spmv`` in planar ordering, a ``GridDiaMatrix``
-  to ``grid_dia_spmv`` (kernel K6, ``ops/grid_spmv.py``).  ``matmat`` —
+  to ``grid_dia_spmv`` (kernel K6, ``ops/grid_spmv.py``), a matrix-free
+  operator (``ndim == 2`` and ``@``, ``linear/operator.py``) to its own
+  ``@``.  ``matmat`` —
   the multi-vector dispatch, for ``DiaMatrix``, ``BdiaMatrix`` and dense
   operators.
 
@@ -314,6 +316,8 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
         # dense operators here are AMG coarse inverses — small; a float32
         # matmul stays full float32 (allow_tf32 is off for matmul)
         return A @ x
+    if getattr(A, "ndim", None) == 2 and hasattr(A, "__matmul__"):
+        return A @ x      # duck-typed operator (linear/operator.py)
     raise TypeError(f"unknown matrix type {type(A)}")
 
 

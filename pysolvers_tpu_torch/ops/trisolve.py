@@ -1,11 +1,12 @@
-"""Level-scheduled sparse triangular solves (the AMG "gs"/"sgs" smoothers).
+"""Sparse triangular solves: the AMG "gs"/"sgs" smoothers and the ILU(t)/
+IC(t) applies.
 
 Port of ``pysolvers_tpu/ops/trisolve.py``.  The dependency DAG of a
 triangular factor is levelized on the host; rows within a level are
 independent and solved as one vectorized step (gather → multiply-reduce →
-scatter).  The JAX ``lax.scan`` over the level chunks becomes a Python loop.
-
-Not ported: ``trisolve_jacobi`` (ROADMAP slice 8, with ILU).
+scatter).  The JAX ``lax.scan`` over the level chunks becomes a Python loop
+(about ten device ops per chunk); the ``fori_loop`` of ``trisolve_jacobi``
+one over the sweeps.
 """
 from __future__ import annotations
 
@@ -133,4 +134,21 @@ def trisolve(plan: TriSolvePlan, b: torch.Tensor) -> torch.Tensor:
         c = plan.ell_cols[rows]
         acc = torch.sum(d * x[c], dim=1)
         x[rows] = (bp[rows] - acc) / plan.diag[rows]
+    return x[:n].to(b.dtype)
+
+
+def trisolve_jacobi(plan: TriSolvePlan, b: torch.Tensor, sweeps: int = 10
+                    ) -> torch.Tensor:
+    """Approximate triangular solve by fixed-point (Jacobi) sweeps:
+    x_{k+1} = D^{-1}(b - N x_k) with T = D + N, from x_0 = 0.  Converges in
+    <= n_levels sweeps (N is nilpotent); ``sweeps`` trades accuracy for
+    time.  Promotes like ``trisolve``."""
+    n = plan.n
+    dt = torch.promote_types(b.dtype, plan.ell_data.dtype)
+    bp = torch.cat([b.to(dt), b.new_zeros(1, dtype=dt)])
+    x = torch.zeros(n + 1, dtype=dt, device=b.device)
+    for _ in range(sweeps):
+        acc = torch.sum(plan.ell_data * x[plan.ell_cols], dim=1)
+        x = ((bp - acc) / plan.diag).to(dt)
+        x[n] = 0.0
     return x[:n].to(b.dtype)

@@ -1,7 +1,7 @@
 """One-call convenience front end: ``pysolvers_tpu_torch.solve(A, b)``.
 
-Port of the native-precision CG route of ``pysolvers_tpu/solve.py``.
-Picks a method and preconditioner from the matrix's structure:
+Port of the native-precision routes of ``pysolvers_tpu/solve.py``.  Picks
+a method and preconditioner from the matrix's structure:
 
 * symmetric (within tolerance) → PCG, else GMRES;
 * small systems (n <= 500) → direct dense solve;
@@ -10,34 +10,39 @@ Picks a method and preconditioner from the matrix's structure:
 
 Two routes run at native precision:
 
-* the scalar CG route on a HostCSR, with ``"none"``, ``"amg"`` and
-  ``"jacobi"`` (and ``"auto"`` where it resolves to AMG);
+* the scalar route on a HostCSR: CG or GMRES (``restart``, ``flexible``
+  and ``orthog`` are forwarded to GMRES) with ``"none"``, ``"ic"``,
+  ``"ilut"``, ``"amg"`` or ``"jacobi"``, and the direct solve;
 * the block-DIA lane: ``solve(BdiaMatrix, b)`` with b of shape (n,) or
-  (n, k), CG with ``"auto"`` (= ``"bjacobi"``), ``"none"``, ``"bcheb"``
-  or ``"bmg"``.  Every operator product is kernel K4 (single RHS) or K5
+  (n, k), CG with ``"auto"`` (= ``"bjacobi"``), ``"none"``, ``"bcheb"``,
+  ``"bmg"`` or ``"ic"`` (scalar IC(t) of the host CSR view, applied in
+  node-major order between planar reorders), and GMRES for one
+  right-hand side.  Every operator product is kernel K4 (single RHS) or K5
   (lockstep multi-RHS, which also applies block-Jacobi through K5).  An
   all-"auto" CG call on a large HostCSR with b×b block structure
   (``sparse/bdia.py::detect_block_size``) is packed and rerouted there.
 
 The others raise ``NotImplementedError`` naming their ROADMAP slice:
-GMRES, the direct solve, IC(t)/ILUT (slice 8), ``precision="mixed"``
-(slice 7), multi-RHS on a HostCSR that is not block-structured (slice 10)
-and ``mesh=`` (slice 12).  None of them falls through to another route.
+``precision="mixed"`` (slice 7), multi-RHS on a HostCSR that is not
+block-structured and GMRES with several right-hand sides (slice 10) and
+``mesh=`` (slice 12).  None of them falls through to another route.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .api import CommonSolverArgs, PCG
+from .api import CommonSolverArgs, DefaultDirect, GMRES, PCG
 from .core import SolveStatus, make_status
 from .linear.amg import AMGPreconditionerType
 from .linear.block_precond import (BlockChebyshevBdiaPreconditionerType,
                                    BlockJacobiBdiaPreconditionerType,
                                    BlockMGBdiaPreconditionerType,
                                    block_jacobi_bdia_matrix)
-from .linear.krylov import KrylovState, cg_solve, cg_solve_multi_rows
-from .linear.preconditioner import JacobiPreconditionerType
+from .linear.ilu import ICPreconditionerType, ILUTPreconditionerType
+from .linear.krylov import (KrylovState, cg_solve, cg_solve_multi_rows,
+                            gmres_solve)
+from .linear.preconditioner import JacobiPreconditionerType, Preconditioner
 from .ops.spmv import bdia_spmm_rows, bdia_spmv
 from .sparse.bdia import BdiaMatrix, detect_block_size
 from .sparse.device import same_device
@@ -56,6 +61,8 @@ def _is_symmetric(A: HostCSR, rtol: float = 1e-10) -> bool:
 
 
 _PRECONDS = ("auto", "none", "ic", "ilut", "amg", "jacobi")
+# the solve() keywords that go to GMRES (JAX solve.py:156-157)
+_GMRES_KWARGS = ("restart", "flexible", "orthog")
 
 
 def _precond_type(precond: str, method: str, n: int):
@@ -71,9 +78,10 @@ def _precond_type(precond: str, method: str, n: int):
             precond = "ilut"
     if precond == "none":
         return None
-    if precond in ("ic", "ilut"):
-        raise NotImplementedError(f"precond={precond!r} is not ported yet "
-                                  "(ROADMAP slice 8)")
+    if precond == "ic":
+        return ICPreconditionerType()
+    if precond == "ilut":
+        return ILUTPreconditionerType()
     if precond == "amg":
         return AMGPreconditionerType(num_iters=2, num_levels=2)
     return JacobiPreconditionerType()
@@ -96,19 +104,21 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
     ``method``: "auto" | "cg" | "gmres" | "direct".
     ``precond``: "auto" | "none" | "ic" | "ilut" | "amg" | "jacobi"; on a
     BdiaMatrix "auto" (= "bjacobi") | "none" | "bjacobi" | "bcheb" |
-    "bmg".
+    "bmg" | "ic".
     ``precision``: "native" solves in the matrix dtype ("mixed" is not
     ported yet).  ``detect_blocks``: on an all-"auto" CG call over a large
     HostCSR (n >= 10,000) with b×b block structure, pack it as a
     BdiaMatrix on ``device`` and take the block-DIA lane; pass False to
-    force the scalar route.
+    force the scalar route.  ``restart``, ``flexible`` and ``orthog`` go
+    to GMRES (CG ignores them); any other keyword is a TypeError.
     """
     if isinstance(A, np.ndarray) and A.ndim == 2:
         A = HostCSR.from_dense(A)
     if "mesh" in solver_kwargs:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP slice 12)")
-    if solver_kwargs:
-        raise TypeError(f"unexpected arguments {sorted(solver_kwargs)}")
+    unknown = set(solver_kwargs) - set(_GMRES_KWARGS)
+    if unknown:
+        raise TypeError(f"unexpected arguments {sorted(unknown)}")
     if precision == "mixed":
         raise NotImplementedError("precision='mixed' is not ported yet "
                                   "(ROADMAP slice 7)")
@@ -120,7 +130,7 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
             raise ValueError(f"the BdiaMatrix is on {A.device}, not on "
                              f"{device}")
         return _solve_bdia(A, b, tau=tau, maxiter=maxiter, method=method,
-                           precond=precond)
+                           precond=precond, **solver_kwargs)
     if not isinstance(A, HostCSR):
         raise TypeError("solve() takes a HostCSR, a dense ndarray or a "
                         "BdiaMatrix; use the factory API for other device "
@@ -147,16 +157,19 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
     if b.ndim != 1:
         raise ValueError(f"solve() takes b of shape (n,); got {b.shape}")
 
-    if method in ("direct", "gmres"):
-        raise NotImplementedError(f"method={method!r} is not ported yet "
-                                  "(ROADMAP slice 8)")
-    if method != "cg":
+    if method == "direct":
+        return DefaultDirect(device=device).make_solver().solve(A, b)
+    if method not in ("cg", "gmres"):
         raise ValueError(f"unknown method {method!r}")
 
     prec_type = _precond_type(precond, method, n)
     control = CommonSolverArgs(maxiter=maxiter, tau=tau)
-    return PCG(control, precond=prec_type, device=device
-               ).make_solver().solve(A, b)
+    if method == "cg":
+        factory = PCG(control, precond=prec_type, device=device)
+    else:
+        factory = GMRES(control, precond=prec_type, device=device,
+                        **solver_kwargs)
+    return factory.make_solver().solve(A, b)
 
 
 _BDIA_PRECONDS = ("auto", "none", "bjacobi", "bcheb", "bmg", "ic")
@@ -189,34 +202,44 @@ def _bdia_cached(A: BdiaMatrix, key, make):
     return ent[key]
 
 
+def _bdia_ic_form(A: BdiaMatrix) -> Preconditioner:
+    """Scalar IC(t) of A's node-major host CSR view, factored in f32 as in
+    the JAX package (``solve.py:242-255``), applied to a planar vector
+    through node-major reorders (in the vector's dtype: the level solves
+    promote)."""
+    H = A.to_host_csr()
+    H32 = HostCSR(H.indptr, H.indices, H.data.astype(np.float32), H.shape)
+    inner = ICPreconditionerType().form(H32, device=A.device)
+
+    def apply(v):
+        return A.to_planar(inner.apply_any(A.from_planar(v)).to(v.dtype))
+
+    return Preconditioner(right=apply)
+
+
 def _bdia_precond(A: BdiaMatrix, precond: str):
-    """The planar preconditioner apply for a BdiaMatrix (None for
-    "none"); the Preconditioner is formed once per planes tensor and kept
-    in the cache entry under ("prec", name)."""
+    """The planar preconditioner apply for a BdiaMatrix (None for "none");
+    the Preconditioner is formed once per planes tensor and kept in the
+    cache entry under ("prec", name)."""
     if precond == "auto":
         precond = "bjacobi"
     if precond == "none":
         return None
-    return _bdia_cached(
-        A, ("prec", precond),
-        lambda: _BDIA_PRECOND_TYPES[precond]().form(A_dev=A)).apply_any
+    form = ((lambda: _bdia_ic_form(A)) if precond == "ic" else
+            (lambda: _BDIA_PRECOND_TYPES[precond]().form(A_dev=A)))
+    return _bdia_cached(A, ("prec", precond), form).apply_any
 
 
 def _solve_bdia(A: BdiaMatrix, b, *, tau, maxiter, method,
-                precond="auto") -> SolveStatus:
+                precond="auto", **gmres_kwargs) -> SolveStatus:
     """solve() route for a BdiaMatrix: node-major b in, node-major solution
-    out; the CG runs in the format's planar ordering in between, on the
-    matrix's device."""
+    out; the Krylov loop runs in the format's planar ordering in between,
+    on the matrix's device (GMRES: single right-hand side, K4 for the
+    operator, ``gmres_kwargs`` forwarded)."""
     if method in ("auto", "direct"):
         method = "cg"            # BDIA problems are large by construction
-    if method == "gmres":
-        raise NotImplementedError("method='gmres' is not ported yet "
-                                  "(ROADMAP slice 8)")
-    if method != "cg":
+    if method not in ("cg", "gmres"):
         raise ValueError(f"unknown method {method!r} for BdiaMatrix")
-    if precond == "ic":
-        raise NotImplementedError("precond='ic' is not ported yet (ROADMAP "
-                                  "slice 8)")
     if precond not in _BDIA_PRECONDS:
         raise ValueError(f"unknown BDIA precond {precond!r}; expected one "
                          f"of {_BDIA_PRECONDS}")
@@ -224,12 +247,18 @@ def _solve_bdia(A: BdiaMatrix, b, *, tau, maxiter, method,
     bd = torch.as_tensor(b, dtype=A.dtype, device=A.device)
     if bd.ndim == 1 and bd.shape[0] == A.n_rows:
         papply = _bdia_precond(A, precond)
-        x, st, hist = cg_solve(lambda v: bdia_spmv(A, v), A.to_planar(bd),
-                               maxiter=maxiter, tau=tau, precond=papply)
+        krylov = (cg_solve if method == "cg" else
+                  lambda *a, **k: gmres_solve(*a, **k, **gmres_kwargs))
+        x, st, hist = krylov(lambda v: bdia_spmv(A, v), A.to_planar(bd),
+                             maxiter=maxiter, tau=tau, precond=papply)
         return make_status(A.from_planar(x), st, control, history=hist)
     if bd.ndim != 2 or bd.shape[0] != A.n_rows or bd.shape[1] == 0:
         raise ValueError(f"solve(BdiaMatrix) takes b of shape ({A.n_rows},) "
                          f"or ({A.n_rows}, k >= 1); got {tuple(bd.shape)}")
+    if method == "gmres":
+        raise NotImplementedError("GMRES with several right-hand sides is "
+                                  "not ported yet (ROADMAP slice 10, "
+                                  "gmres_solve_multi)")
 
     # lockstep multi-RHS in ROW layout (k, b·nb): one planar RHS per row,
     # K5 for the operator

@@ -271,19 +271,23 @@ def test_precond_cache_reuses_and_sees_in_place_updates():
     assert len(tsolve._BDIA_SOLVE_CACHE) <= 8
 
 
+# (solve() arguments, right-hand sides: None for one, else k columns);
+# single-RHS GMRES and IC are ported (tests/test_torch_gmres.py)
 UNPORTED = {
-    "mixed": dict(precision="mixed"),
-    "gmres": dict(method="gmres"),
-    "ic": dict(precond="ic"),
-    "mesh": dict(mesh=object()),
+    "mixed": (dict(precision="mixed"), None),
+    "gmres": (dict(method="gmres"), 2),
+    "ic": (dict(precond="ic", precision="mixed"), None),
+    "mesh": (dict(mesh=object()), None),
 }
 
 
 @pytest.mark.parametrize("route", sorted(UNPORTED))
 def test_unported_block_routes_raise(route):
     H, A, _ = _pair(6, 2)
+    kwargs, k = UNPORTED[route]
+    b = np.ones(H.shape[0]) if k is None else np.ones((H.shape[0], k))
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        pt.solve(A, np.ones(H.shape[0]), **UNPORTED[route])
+        pt.solve(A, b, **kwargs)
 
 
 def test_bad_block_arguments_raise():

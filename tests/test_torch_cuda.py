@@ -1,4 +1,5 @@
-"""Kernels K1, K2/K3, K4/K5, K6 and K7 and the port's main paths on a CUDA device,
+"""Kernels K1, K2/K3, K4/K5, K6 and K7 and the port's main paths (GMRES,
+ILU(t)/IC(t) and the direct solve among them) on a CUDA device,
 against the plain twins and the CPU path.  Every test here needs the card and skips without
 one; this file imports neither jax nor pysolvers_tpu, so it runs on a GPU
 machine without JAX:
@@ -494,7 +495,7 @@ def test_solve_defaults_to_the_card(cuda):
     H = pt.problems.fd_laplacian_2d(64)
     b = H.matvec(np.random.default_rng(8).random(H.shape[0]))
     spmv.dia_spmv_launches = 0
-    # "auto" would pick IC at this size, which is not ported yet
+    # AMG: K1 on the fine level of every V-cycle
     st = pt.solve(H, b, precond="amg", tau=1e-10)
     assert st.success and st.soln.device.type == "cuda"
     assert spmv.dia_spmv_launches > 0
@@ -665,3 +666,172 @@ def test_gmg_solve_on_cuda_runs_k6(cuda, galerkin, monkeypatch):
     x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
     assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-9
     assert np.linalg.norm(b - H.matvec(x)) / np.linalg.norm(b) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# GMRES, ILU(t)/IC(t) and the direct solve on the card
+# ---------------------------------------------------------------------------
+
+def _convdiff(m, seed=2):
+    H = pt.fd_convection_diffusion_2d(m)
+    x_star = np.random.default_rng(seed).random(H.shape[0])
+    return H, x_star, H.matvec(x_star)
+
+
+def _same_solve(st, ref, H, b, iters=1):
+    assert st.success and st.reason == ref.reason
+    assert st.soln.device.type == "cuda"
+    assert abs(st.iters - ref.iters) <= iters
+    x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
+    assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-8
+    assert np.linalg.norm(b - H.matvec(x)) / np.linalg.norm(b) <= 1e-9
+
+
+@pytest.mark.parametrize("orthog", ["mgs", "cgs2"])
+def test_gmres_ilut_on_cuda_runs_k1_and_matches_cpu(cuda, orthog):
+    """solve()'s nonsymmetric default (GMRES + ILUT, level-scheduled) on
+    a DiaMatrix: K1 for every product, the CPU port's iterations."""
+    H, x_star, b = _convdiff(63)
+    spmv.dia_spmv_launches = 0
+    st = pt.solve(H, b, tau=1e-10, orthog=orthog)
+    # one product per iteration, one per cycle start, one true residual
+    assert spmv.dia_spmv_launches == st.iters + 2
+    _same_solve(st, pt.solve(H, b, tau=1e-10, orthog=orthog, device="cpu"),
+                H, b)
+
+
+def test_pcg_ic_on_cuda_matches_cpu(cuda):
+    H = pt.problems.fd_laplacian_2d(64)
+    b = H.matvec(np.random.default_rng(3).random(H.shape[0]))
+    spmv.dia_spmv_launches = 0
+    st = pt.solve(H, b, tau=1e-10)
+    assert spmv.dia_spmv_launches == st.iters + 1
+    _same_solve(st, pt.solve(H, b, tau=1e-10, device="cpu"), H, b)
+
+
+@pytest.mark.parametrize("m,per_apply", [(15, 18), (63, 9)])
+def test_jacobi_bws_sweeps_launch_k2(cuda, m, per_apply):
+    """Each sweep product is one K2 launch on the strict factor's device
+    CSR: 9 per factor with 10 sweeps (ILUT's L has no off-diagonal entry
+    at m = 63 and needs none)."""
+    H, x_star, b = _convdiff(m)
+
+    def run(device):
+        return pt.GMRES(pt.CommonSolverArgs(maxiter=400, tau=1e-10),
+                        precond=pt.ILUTPreconditionerType(
+                            trisolve_mode="jacobi_bws"),
+                        flexible=True, device=device).make_solver().solve(H, b)
+
+    tbws.bws_spmv_launches = 0
+    st = run(cuda)
+    # FGMRES: one apply per iteration, none to form x
+    assert tbws.bws_spmv_launches == per_apply * st.iters
+    _same_solve(st, run("cpu"), H, b, iters=2)
+
+
+def test_jacobi_bws_raises_on_cuda_rather_than_degrade(cuda, monkeypatch):
+    """A factor that does not pack as BWS, or has a zero pivot, raises on
+    the card and names the factor; no torch sweep or level plan runs."""
+    from pysolvers_tpu_torch.linear import ilu as tilu
+    boom = lambda *a, **k: (_ for _ in ()).throw(AssertionError("degraded"))
+    monkeypatch.setattr(tilu, "build_trisolve_plan", boom)
+    n = 40_000                 # tridiagonal, first and last unknowns coupled
+    rows = np.r_[np.arange(n), np.arange(1, n), np.arange(n - 1), 0, n - 1]
+    cols = np.r_[np.arange(n), np.arange(n - 1), np.arange(1, n), n - 1, 0]
+    vals = np.r_[np.full(n, 4.0), -np.ones(2 * (n - 1)), -1.0, -1.0]
+    H = pt.HostCSR.from_coo(rows, cols, vals, (n, n))
+    with pytest.raises(ValueError, match="the lower factor does not pack"):
+        pt.ILUTPreconditionerType(trisolve_mode="jacobi_bws").form(
+            H, device=cuda)
+    U = pt.problems.fd_laplacian_2d(6).extract_upper()
+    U.data[U.indptr[3]] = 0.0              # row 3's diagonal
+    eye = pt.HostCSR.from_coo(np.arange(36), np.arange(36), np.ones(36),
+                              (36, 36))
+    with pytest.raises(ValueError, match="the upper factor has a zero "
+                                         "pivot in row 3"):
+        tilu._factor_apply(eye, U, True, "jacobi_bws", 10, np.float64,
+                           torch.device(cuda))
+
+
+def test_block_lane_gmres_launches_k4(cuda):
+    H = pt.problems.fd_vector_laplacian_2d(32, b=5, coupling=0.2)
+    b = H.matvec(np.random.default_rng(5).random(H.shape[0]))
+    for precond in ("auto", "ic"):
+        spmv.bdia_spmv_launches = 0
+        st = pt.solve(pt.BdiaMatrix.from_host_csr(H, 5, device=cuda), b,
+                      tau=1e-10, method="gmres", precond=precond)
+        assert spmv.bdia_spmv_launches == st.iters + 2
+        ref = pt.solve(pt.BdiaMatrix.from_host_csr(H, 5, device="cpu"), b,
+                       tau=1e-10, method="gmres", precond=precond)
+        _same_solve(st, ref, H, b)
+    st = pt.solve(pt.BdiaMatrix.from_host_csr(H, 5, device=cuda), b,
+                  tau=1e-10, precond="ic")
+    _same_solve(st, pt.solve(pt.BdiaMatrix.from_host_csr(H, 5, device="cpu"),
+                             b, tau=1e-10, precond="ic"), H, b)
+
+
+@pytest.mark.parametrize("form", ["host", "dia", "ell"])
+def test_direct_on_cuda(cuda, form):
+    H = pt.problems.fd_laplacian_2d(22)
+    x_star = np.random.default_rng(6).random(H.shape[0])
+    b = H.matvec(x_star)
+    A = {"host": H,
+         "dia": pt.DiaMatrix.from_host_csr(H, device=cuda),
+         "ell": pt.EllMatrix.from_host_csr(H, device=cuda)}[form]
+    st = pt.DefaultDirect().make_solver().solve(A, b)
+    assert st.success and st.soln.device.type == "cuda"
+    x = st.soln.cpu().numpy()
+    assert np.linalg.norm(x - x_star) / np.linalg.norm(x_star) <= 1e-12
+    if form == "host":
+        st = pt.solve(H, b)           # n <= 500: the direct solve, on the card
+        assert st.iters == 1 and st.soln.device.type == "cuda"
+
+
+def test_new_routes_never_run_a_twin_on_cuda(cuda, monkeypatch):
+    boom = lambda *a: (_ for _ in ()).throw(AssertionError("twin on CUDA"))
+    for mod, name in ((spmv, "dia_spmv_torch"), (spmv, "bdia_spmm_torch"),
+                      (spmv, "bdia_spmv_torch"), (tbws, "bws_spmv_torch")):
+        monkeypatch.setattr(mod, name, boom)
+    H, _, b = _convdiff(31)
+    assert pt.solve(H, b, tau=1e-10).success
+    assert pt.GMRES(pt.CommonSolverArgs(maxiter=300, tau=1e-10),
+                    precond=pt.ILUTPreconditionerType(
+                        trisolve_mode="jacobi_bws"),
+                    flexible=True).make_solver().solve(H, b).success
+    Hv = pt.problems.fd_vector_laplacian_2d(16, b=3, coupling=0.2)
+    assert pt.solve(pt.BdiaMatrix.from_host_csr(Hv, 3, device=cuda),
+                    Hv.matvec(np.ones(Hv.shape[0])), tau=1e-10,
+                    method="gmres").success
+
+
+def test_gmres_reads_the_host_once_per_iteration(cuda, monkeypatch):
+    """Five more iterations, five more synchronizations (sync-debug
+    warnings) and five more host reads: the Hessenberg column's."""
+    import warnings
+    from pysolvers_tpu_torch.linear import krylov
+    H, _, b = _convdiff(31)
+    A = pt.DiaMatrix.from_host_csr(H, device=cuda)
+    bt = torch.as_tensor(b, device=cuda)
+    reads = []
+    real = krylov._host
+    monkeypatch.setattr(krylov, "_host", lambda t: reads.append(1) or real(t))
+
+    def syncs(maxiter, orthog):
+        reads.clear()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, st, _ = krylov.gmres_solve(lambda v: pt.matvec(A, v), bt,
+                                              maxiter=maxiter, tau=1e-15,
+                                              orthog=orthog)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert st.k == maxiter
+        return sum("synchroniz" in str(x.message) for x in w), len(reads)
+
+    for orthog in ("mgs", "cgs2"):
+        s5, r5 = syncs(5, orthog)
+        s10, r10 = syncs(10, orthog)
+        assert s10 - s5 == 5 and r10 - r5 == 5

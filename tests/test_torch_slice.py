@@ -73,13 +73,6 @@ def test_frozen_preconditioner_is_reused():
 
 UNPORTED = {
     "precision_mixed": lambda H, b: pt.solve(H, b, precision="mixed"),
-    "method_gmres": lambda H, b: pt.solve(H, b, method="gmres"),
-    "method_direct": lambda H, b: pt.solve(H, b, method="direct"),
-    "auto_direct_small": lambda H, b: pt.solve(
-        pt.problems.fd_laplacian_2d(8), np.ones(64)),
-    "precond_ic": lambda H, b: pt.solve(H, b, precond="ic"),
-    "precond_ilut": lambda H, b: pt.solve(H, b, precond="ilut"),
-    "auto_ic_medium": lambda H, b: pt.solve(H, b),
     "multi_rhs": lambda H, b: pt.solve(H, np.stack([b, b], axis=1),
                                        precond="amg"),
     "mesh": lambda H, b: pt.solve(H, b, mesh=object()),
@@ -93,6 +86,9 @@ UNPORTED = {
         H, use_rcm=False, device="cpu")), b),
     "amg_galerkin_device": lambda H, b: pt.AMG(galerkin="device"),
     "vcycle_mesh": lambda H, b: pt.AMGVCycle(mesh=object()),
+    "trisolve_block": lambda H, b: pt.GMRES(
+        precond=pt.ILUTPreconditionerType(trisolve_mode="block"),
+        device="cpu").make_solver().solve(H, b),
 }
 
 
