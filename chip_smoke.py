@@ -83,6 +83,26 @@ more (any failure raises and the script exits non-zero):
    ``DefaultDirect`` on a DiaMatrix, against scipy's ``spsolve``;
 20. the block lane's GMRES (K4) and its CG with the scalar IC(t), on
    fd_vector_laplacian_2d(64, b=5, coupling=0.2) (n = 20,480);
+21. mixed precision (f32 inner Krylov on the kernels, f64 refinement, the
+   f64 oracle on the kernels in f64), banded: ``solve(..., precision=
+   "mixed")`` with no device on phase 5's system, and PCG and GMRES with
+   AMG(2, 6) on phase 4's operator (K1 f32 and f64), frozen re-solves
+   beside phases 4 and 18;
+22. mixed precision, unstructured: PCG + BWS SA-AMG on phase 7's FEM
+   matrix unpermuted; the route packs its own RCM-ordered f32 BWS operator
+   (K2 f32) and an f64 pack as the oracle (K2 f64); re-solves beside
+   phase 7;
+23. mixed precision, block lane at full width: "auto" with one
+   right-hand side (K4 f32 inside, K4 f64 oracle) beside phase 10, and
+   k = 8 through ``cg_lockstep_rr`` (K5 f32 and f64) beside phase 11;
+24. mixed precision, geometric multigrid: ``hbm_solve.py``'s f32 route at
+   m = 10239 (the f32 table and device-probed hierarchy, K6 f32 on the
+   two finest levels, K1 f32 below, ``cg_solve_rr`` with two V-cycles, K6
+   f64 on the f64 grid table as the oracle), beside phase 13, with a
+   profiled repeat and the device time of the hi-dots and the f64 x
+   update;
+25. mixed precision, short: ``solve()`` on fd_convection_diffusion_2d(63)
+   (GMRES + ILUT, the f64 FGMRES inner) gated on the JAX package's count;
 15. (run last, since a profiler session may leave host overhead on later
    launches) the unstructured path under ``torch.profiler``: phase 7's
    re-solve (busy share, K2's share, launches per iteration) and the
@@ -91,15 +111,20 @@ more (any failure raises and the script exits non-zero):
    median unprofiled wall, device ops per iteration, the shares of K1, of
    MGS and of the ILUT applies).
 
-Phases 16-20 gate on a CONVERGED stop, a host residual <= 1e-9 (scipy)
-and the error against x* (1e-6; 1e-5 on the block lane), and print the
-iterations, ms per iteration, the kernel launches and the solution's
-device.
+Phases 16-25 gate on a CONVERGED stop, a host residual <= 1e-9 (scipy,
+or the matrix-free stencil) and the error against x* (1e-6; 1e-5 on the
+unstructured and block lanes), and print the iterations, ms per
+iteration, the kernel launches and the solution's device.  Phases 21-24
+allow at most MIXED_ITERS_FACTOR times the native iterations of the same
+system and print the native phase's numbers beside their own, the f32
+operator's dtype, the launches of each kernel in each dtype and the host
+reads per iteration.
 
 Then one JSON line on the kernels (each with its bound from the bytes it
 must move and the operations it must do, and the time of the library
 call, which the port itself never makes; ``launches`` counts the main
-path's run, ``path_launches`` the runs of phases 16-20), and last the
+path's run, ``path_launches`` the runs of phases 16-25, by dtype for
+21-25), and last the
 device record ``{"ok": true, "device": {...}}``.
 
 ``--bws-sweep`` runs none of that: it builds copies of
@@ -171,6 +196,12 @@ DIRECT_ERR_LIMIT = 1e-12           # 19: against scipy's spsolve
 BLOCK_GMRES_M = 64                 # 20: the block lane at n = 20,480
 BLOCK_GMRES_ITERS, BLOCK_IC_ITERS = 205, 142
 ITERS_SLACK = 0.05
+# phases 21-25, the mixed-precision routes: at most this many times the
+# native iterations of the same system (the JAX package's counts at these
+# sizes are not taken on the CPU, and its CPU AMG smooths by Gauss-Seidel
+# where the card's smooths by Jacobi); phase 25's size and JAX count
+MIXED_ITERS_FACTOR = 1.5
+CD_MIXED_M, CD_MIXED_ITERS = 63, 396
 # phase 16's solve under the profiler (phase 15), capped at this many
 # iterations
 PROFILE_MAXITER = 40
@@ -511,7 +542,8 @@ def main_path(device, m=1023):
              f"K1 launches={launches} host rel resid={resid:.3e} "
              f"err vs manufactured={err:.3e} re-solve iters={st2.iters} | "
              f"{card_line()}")
-    return launches, 1e3 * solve_s / st2.iters
+    return launches, dict(ms_per_iter=1e3 * solve_s / st2.iters,
+                          solve_s=solve_s, iters=st2.iters)
 
 
 def front_end(device, m=150):
@@ -537,11 +569,14 @@ def front_end(device, m=150):
              f"argument: solution on {st.soln.device}, {wall:.3f} s "
              f"iters={st.iters} reason={st.reason.name} K1 launches="
              f"{launches} host rel resid={resid:.3e} err={err:.3e}")
+    return dict(wall=wall, iters=st.iters, err=err)
 
 
 def reset_launches():
-    """Every kernel's launch count to 0."""
-    from pysolvers_tpu_torch.ops import bws_spmv, grid_spmv, probe, spmv
+    """Every kernel's launch count to 0, the counts by dtype included."""
+    from pysolvers_tpu_torch.ops import _cuda_build, bws_spmv, grid_spmv
+    from pysolvers_tpu_torch.ops import probe, spmv
+    _cuda_build.launches_by_dtype.clear()
     spmv.dia_spmv_launches = 0
     spmv.bdia_spmv_launches = spmv.bdia_spmm_launches = 0
     bws_spmv.bws_spmv_launches = bws_spmv.bws_spmv_classes_launches = 0
@@ -737,8 +772,8 @@ def unstructured_path(device, m=1025, num_levels=4):
              f"{csr_bytes / 1e6:.1f} MB (fine operator "
              f"{A_bws.csr.nbytes / 1e6:.1f} MB, {A_bws.csr.n_blocks} row "
              f"blocks), pack tables {pack_bytes / 1e6:.1f} MB")
-    return dict(Ap=Ap, A_bws=A_bws, solver=solver, counts=counts, b=b,
-                solve_s=solve_s, iters=st2.iters)
+    return dict(A=A, Ap=Ap, A_bws=A_bws, solver=solver, counts=counts, b=b,
+                solve_s=solve_s, iters=st2.iters, err=err)
 
 
 def bws_products(h, A_fine, iters, num_iters):
@@ -1090,7 +1125,8 @@ def block_single(H, A, device, gen_s, pack_s):
                   f" ms/iter ({st2.iters} iters); launches {counts} | "
                   f"{card_line()}")
         if precond == "auto":
-            k4 = counts["K4"]
+            k4 = dict(launches=counts["K4"], iters=st2.iters,
+                      repeat_s=repeat_s, first_s=first_s, err=err)
     return k4
 
 
@@ -1127,6 +1163,8 @@ def block_multi(H, A, device):
               f"rel resid per column max {max(resids):.3e} "
               f"{[f'{r:.2e}' for r in resids]}; err vs X* max {max(errs):.3e}; "
               f"launches {counts} | {card_line()}")
+    native = dict(launches=counts["K5"], iters=st.iters, wall=wall,
+                  err=max(errs))
 
     m = 150
     Hs = pt.fd_vector_laplacian_2d(m, b=BLOCK_B, coupling=BLOCK_COUPLING)
@@ -1151,7 +1189,7 @@ def block_multi(H, A, device):
               f"hierarchy, no K1) in {wall:.3f} s, iters={st.iters} reason="
               f"{st.reason.name} host rel resid={resid:.3e} err={err:.3e}; "
               f"launches {c}")
-    return counts["K5"]
+    return native
 
 
 def lap2d_dia(m):
@@ -1354,6 +1392,7 @@ def grid_path(fine, device, m=GRID_M, num_levels=GRID_LEVELS):
     b = lap2d_matvec(m, x_star)
     b_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     Timer.reset()
     reset_launches()
     t0 = time.perf_counter()
@@ -1429,7 +1468,10 @@ def grid_path(fine, device, m=GRID_M, num_levels=GRID_LEVELS):
     else:
         phase(13, "profiled repeat solve: the profiler saw no device time "
                   "(busy share not measured)")
-    return counts
+    return dict(counts=counts, b=b, x_star=x_star, iters=st.k,
+                first_s=first_s, repeat_s=repeat_s, peak=peak, err=err,
+                peak_above=peak - base / 1e9,
+                setup_s=setup_s, busy=(100 * dev_s / wall if rows else None))
 
 
 def profile_unstructured(path, fine32, rec):
@@ -1771,7 +1813,8 @@ def gmres_amg(device, pcg_ms, m=1023):
                   f" (phase 4's PCG: {pcg_ms:.3f} ms/iter); launches {counts};"
                   f" solution on {st.soln.device}; peak device memory "
                   f"{peak:.3f} GB above the phase's start | {card_line()}")
-        out[orthog] = counts["K1"]
+        out[orthog] = dict(K1=counts["K1"], repeat_s=repeat_s,
+                           iters=st2.iters)
     return out
 
 
@@ -1918,6 +1961,447 @@ def profile_gmres_ilut(p16, device):
               f"per apply | {card_line()}")
 
 
+class HostReads:
+    """Counts the solvers' device-to-host reads while active: the
+    ``_host`` of ``linear/krylov.py`` (GMRES, the replacement solvers) and
+    of ``linear/refine.py`` (the refinement passes)."""
+
+    def __enter__(self):
+        from pysolvers_tpu_torch.linear import krylov, refine
+        self.n, self._mods = 0, (krylov, refine)
+        self._real = krylov._host
+
+        def counted(t):
+            self.n += 1
+            return self._real(t)
+        for mod in self._mods:
+            mod._host = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod._host = self._real
+
+
+def by_dtype(kernels):
+    """{"K1 f32": n, "K1 f64": n, ...} of the launches counted by dtype
+    since the last reset, for ``kernels``."""
+    from pysolvers_tpu_torch.ops import _cuda_build
+    c = _cuda_build.launches_by_dtype
+    return {f"{k} {short}": c[k, d] for k in kernels
+            for d, short in (("float32", "f32"), ("float64", "f64"))}
+
+
+def mixed_path(phases, kernel):
+    """The kernels-record ``path_launches`` entries of ``kernel`` from
+    phases' launches by dtype: {"phase 21 PCG f32": n, ...}."""
+    return {f"{ph} {d}": counts[f"{kernel} {d}"]
+            for ph, counts in phases.items() for d in ("f32", "f64")}
+
+
+def mixed_gate(tag, st, iters_native, resid, err, err_limit):
+    """The mixed route's gates: CONVERGED, host residual, error against x*
+    and at most MIXED_ITERS_FACTOR times the native iterations."""
+    if (st.reason.name != "CONVERGED" or resid > RESID_LIMIT
+            or err > err_limit
+            or st.iters > MIXED_ITERS_FACTOR * iters_native):
+        raise SystemExit(f"{tag}: reason={st.reason.name} iters={st.iters} "
+                         f"(native {iters_native}) resid={resid:.3e} "
+                         f"err={err:.3e} (limit {err_limit:g})")
+
+
+def timed(fn):
+    """(result, wall seconds) of fn, synchronized."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mixed_banded(device, p4, p5, p18, m=1023):
+    """Phase 21: the banded lane at mixed precision.  solve() with no
+    device on phase 5's system (at m = 1023 its default 2-level AMG would
+    need a dense coarse inverse of ~175k unknowns); PCG and GMRES with
+    AMG(2, 6) on phase 4's operator, frozen, the first solve and the median
+    of five re-solves beside phases 4 and 18.  Returns K1's launches by
+    dtype."""
+    import pysolvers_tpu_torch as pt
+    card = card_line()
+    out = {}
+    H = pt.problems.fd_laplacian_2d(150)
+    x_star = np.random.default_rng(3).random(H.shape[0])
+    b = H.matvec(x_star)
+    reset_launches()
+    with HostReads() as reads:
+        st, wall = timed(lambda: pt.solve(H, b, tau=1e-10,
+                                          precision="mixed"))
+    resid, err = check_solution("phase 21 solve()", H, b, x_star, st, device)
+    mixed_gate("phase 21 solve()", st, p5["iters"], resid, err, 1e-6)
+    if st.soln.dtype.itemsize != 8:
+        raise SystemExit("phase 21: the mixed solution is not f64")
+    phase(21, f"solve(fd_laplacian_2d(150), b, tau=1e-10, precision="
+              f"'mixed') with no device: solution {st.soln.dtype} on "
+              f"{st.soln.device}; iters={st.iters} reason={st.reason.name} "
+              f"host rel resid={resid:.3e} err={err:.3e}; {wall:.3f} s "
+              f"(setup included) | native (phase 5): iters={p5['iters']} "
+              f"{p5['wall']:.3f} s err={p5['err']:.3e}; launches "
+              f"{by_dtype(('K1',))}; host reads {reads.n} = "
+              f"{reads.n / st.iters:.2f} per iteration | {card}")
+    out["phase 21 solve()"] = by_dtype(("K1",))
+    H = pt.problems.fd_laplacian_2d(m)
+    x_star = np.random.default_rng(2).random(H.shape[0])
+    b = H.matvec(x_star)
+    for name, factory, native in (
+            ("PCG", pt.PCG, dict(iters=p4["iters"], solve_s=p4["solve_s"],
+                                 what="phase 4 PCG")),
+            ("GMRES", pt.GMRES, dict(iters=p18["mgs"]["iters"],
+                                     solve_s=p18["mgs"]["repeat_s"],
+                                     what="phase 18 GMRES mgs"))):
+        solver = factory(pt.CommonSolverArgs(maxiter=500, tau=1e-10),
+                         precond=pt.AMG(num_iters=2, num_levels=6),
+                         precision="mixed").make_solver()
+        solver.freeze_matrix()
+        solver.freeze_prec()
+        reset_launches()
+        with HostReads() as reads:
+            st, first_s = timed(lambda: solver.solve(H, b))
+        launches = by_dtype(("K1",))
+        resid, err = check_solution(f"phase 21 {name}", H, b, x_star, st,
+                                    device)
+        mixed_gate(f"phase 21 {name}", st, native["iters"], resid, err, 1e-6)
+        A32 = solver._mx["A32"]
+        walls = []
+        for _ in range(5):
+            st2, w = timed(lambda: solver.solve(H, b))
+            walls.append(w)
+        check_solution(f"phase 21 {name} re-solve", H, b, x_star, st2,
+                       device)
+        med = statistics.median(walls)
+        if launches["K1 f32"] <= 0 or launches["K1 f64"] <= 0:
+            raise SystemExit(f"phase 21 {name}: launches {launches}")
+        phase(21, f"{name}(maxiter=500, tau=1e-10) + AMG(num_iters=2, "
+                  f"num_levels=6), precision='mixed', frozen, "
+                  f"fd_laplacian_2d({m}) n={H.shape[0]}: f32 operator "
+                  f"{type(A32).__name__} {A32.dtype}; iters={st.iters} "
+                  f"reason={st.reason.name} host rel resid={resid:.3e} err="
+                  f"{err:.3e}; first solve {first_s:.3f} s (setup included),"
+                  f" re-solve {1e3 * med:.3f} ms, the median of "
+                  f"{[round(1e3 * w, 3) for w in walls]} "
+                  f"({1e3 * med / st2.iters:.3f} ms/iter) | native "
+                  f"({native['what']}): {native['iters']} iters, "
+                  f"{1e3 * native['solve_s']:.3f} ms "
+                  f"({1e3 * native['solve_s'] / native['iters']:.3f} ms/iter)"
+                  f"; launches {launches}; host reads {reads.n} = "
+                  f"{reads.n / st.iters:.2f} per iteration | {card}")
+        out[f"phase 21 {name}"] = launches
+        del solver
+    return out
+
+
+def mixed_unstructured(device, path, num_levels=4):
+    """Phase 22: PCG + BWS SA-AMG at mixed precision on the unpermuted FEM
+    matrix of phase 7: the route packs its own RCM-ordered f32 BWS
+    operator (K2 f32) and an f64 pack of the permuted matrix as the oracle
+    (K2 f64).  The first solve and the median of five re-solves beside
+    phase 7's native re-solve.  Returns K2's launches by dtype."""
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.utils.timing import Timer
+    A = path["A"]
+    x_star = np.random.default_rng(7).normal(size=A.shape[0])
+    b = A.matvec(x_star)
+    solver = pt.PCG(pt.CommonSolverArgs(maxiter=500, tau=1e-10),
+                    precond=pt.AMG(num_iters=2, num_levels=num_levels,
+                                   galerkin="host", matrix_format="bws"),
+                    precision="mixed").make_solver()
+    solver.freeze_matrix()
+    solver.freeze_prec()
+    Timer.reset()
+    reset_launches()
+    with HostReads() as reads:
+        st, first_s = timed(lambda: solver.solve(A, b))
+    launches = by_dtype(("K1", "K2", "K3"))
+    resid, err = check_solution("phase 22", A, b, x_star, st, device,
+                                UNSTRUCTURED_ERR_LIMIT)
+    mixed_gate("phase 22", st, path["iters"], resid, err,
+               UNSTRUCTURED_ERR_LIMIT)
+    if launches["K2 f32"] <= 0 or launches["K2 f64"] <= 0:
+        raise SystemExit(f"phase 22: launches {launches}")
+    walls = []
+    for _ in range(5):
+        st2, w = timed(lambda: solver.solve(A, b))
+        walls.append(w)
+    check_solution("phase 22 re-solve", A, b, x_star, st2, device,
+                   UNSTRUCTURED_ERR_LIMIT)
+    med = statistics.median(walls)
+    A32, A64 = solver._mx["A32"], solver._mx["A64"]
+    phase(22, f"PCG + AMG(num_iters=2, num_levels={num_levels}, "
+              f"matrix_format='bws'), precision='mixed', on "
+              f"fem_poisson_2d_unstructured(1025, seed=3) n={A.shape[0]} "
+              f"(unpermuted): f32 operator {type(A32).__name__} {A32.dtype} "
+              f"(RCM), oracle {type(A64).__name__} {A64.dtype}; iters="
+              f"{st.iters} reason={st.reason.name} host rel resid="
+              f"{resid:.3e} err={err:.3e}; first solve {first_s:.3f} s (SA "
+              f"hierarchy {Timer.total('amg.host_hierarchy'):.3f} s, device "
+              f"lowering {Timer.total('amg.device_lower'):.3f} s), re-solve "
+              f"{1e3 * med:.3f} ms, the median of "
+              f"{[round(1e3 * w, 3) for w in walls]} ({st2.iters} iters) | "
+              f"native (phase 7): {path['iters']} iters, "
+              f"{1e3 * path['solve_s']:.3f} ms, err={path['err']:.3e}; "
+              f"launches {launches}; host reads {reads.n} = "
+              f"{reads.n / st.iters:.2f} per iteration | {card_line()}")
+    return launches
+
+
+def mixed_block(device, p10, p11):
+    """Phase 23: the block lane at mixed precision, full width, on phase
+    9's operator built anew (phases 12-13 run without it, as before):
+    "auto" (block-Jacobi, K4 f32 inside, K4 f64 as the oracle) with one
+    right-hand side beside phase 10, and k = 8 through cg_lockstep_rr (K5
+    f32 for the operator and block-Jacobi, K5 f64 for the replacements)
+    beside phase 11, per column.  Returns K4's and K5's launches."""
+    import importlib
+    import pysolvers_tpu_torch as pt
+    tsolve = importlib.import_module("pysolvers_tpu_torch.solve")
+    card = card_line()
+    H, A, _, _ = block_operator(device)
+    x_star = np.random.default_rng(0).random(H.shape[0])
+    b = H.matvec(x_star)
+    reset_launches()
+    with HostReads() as reads:
+        st, first_s = timed(lambda: pt.solve(A, b, tau=1e-10,
+                                             maxiter=BLOCK_MAXITER,
+                                             precision="mixed"))
+    single = by_dtype(("K4", "K5"))
+    resid, err = check_solution("phase 23 auto", H, b, x_star, st, device,
+                                BLOCK_ERR_LIMIT)
+    mixed_gate("phase 23 auto", st, p10["iters"], resid, err,
+               BLOCK_ERR_LIMIT)
+    st2, repeat_s = timed(lambda: pt.solve(A, b, tau=1e-10,
+                                           maxiter=BLOCK_MAXITER,
+                                           precision="mixed"))
+    check_solution("phase 23 auto repeat", H, b, x_star, st2, device,
+                   BLOCK_ERR_LIMIT)
+    if single["K4 f32"] <= 0 or single["K4 f64"] <= 0:
+        raise SystemExit(f"phase 23 auto: launches {single}")
+    phase(23, f"solve(BdiaMatrix fd_vector_laplacian_2d({BLOCK_M}, b="
+              f"{BLOCK_B}), b, precision='mixed') 'auto' n={H.shape[0]}: "
+              f"f32 operator {A.dtype} -> float32 planes; iters={st.iters} "
+              f"reason={st.reason.name} host rel resid={resid:.3e} err="
+              f"{err:.3e}; first {first_s:.3f} s (f32 cast and block-Jacobi "
+              f"included), repeat {repeat_s:.3f} s = "
+              f"{1e3 * repeat_s / st2.iters:.3f} ms/iter | native (phase "
+              f"10): {p10['iters']} iters, {p10['repeat_s']:.3f} s = "
+              f"{1e3 * p10['repeat_s'] / p10['iters']:.3f} ms/iter; "
+              f"launches {single}; host reads {reads.n} = "
+              f"{reads.n / st.iters:.3f} per iteration | {card}")
+    X_star = np.random.default_rng(1).random((H.shape[0], BLOCK_K))
+    B = np.stack([H.matvec(X_star[:, j]) for j in range(BLOCK_K)], axis=1)
+    cols = []
+    lock = tsolve.cg_lockstep_rr
+
+    def recording(*a, **k):
+        out = lock(*a, **k)
+        cols.append(out[1])
+        return out
+    tsolve.cg_lockstep_rr = recording
+    try:
+        reset_launches()
+        with HostReads() as reads:
+            st, wall = timed(lambda: pt.solve(A, B, tau=1e-10,
+                                              maxiter=BLOCK_MAXITER,
+                                              precision="mixed"))
+    finally:
+        tsolve.cg_lockstep_rr = lock
+    multi = by_dtype(("K4", "K5"))
+    X = st.soln.cpu().numpy()
+    resids = [host_residual(H, X[:, j], B[:, j]) for j in range(BLOCK_K)]
+    errs = [float(np.linalg.norm(X[:, j] - X_star[:, j])
+                  / np.linalg.norm(X_star[:, j])) for j in range(BLOCK_K)]
+    mixed_gate("phase 23 k=8", st, p11["iters"], max(resids), max(errs),
+               BLOCK_ERR_LIMIT)
+    if len(cols) != 1 or multi["K5 f32"] <= 0 or multi["K5 f64"] <= 0:
+        raise SystemExit(f"phase 23 k=8: launches {multi}, lockstep runs "
+                         f"{len(cols)}")
+    phase(23, f"solve(BdiaMatrix, B, precision='mixed') k={BLOCK_K} "
+              f"cg_lockstep_rr: iters={st.iters} (max) per column "
+              f"{cols[0].k.tolist()} reason={st.reason.name}; wall "
+              f"{wall:.3f} s = {1e3 * wall / st.iters:.3f} ms/iter; host rel "
+              f"resid per column {[f'{r:.2e}' for r in resids]}; err vs X* "
+              f"max {max(errs):.3e} | native (phase 11): {p11['iters']} "
+              f"iters, {p11['wall']:.3f} s = "
+              f"{1e3 * p11['wall'] / p11['iters']:.3f} ms/iter; launches "
+              f"{multi}; host reads {reads.n} = {reads.n / st.iters:.3f} per "
+              f"iteration | {card}")
+    return single, multi
+
+
+def mixed_grid(device, p13, m=GRID_M, num_levels=GRID_LEVELS):
+    """Phase 24: benchmarks/hbm_solve.py's run_solve route at m = 10239:
+    the f32 (5, n) table, the f32 device-probed hierarchy (K6 f32 on the
+    two finest levels, K1 f32 below), cg_solve_rr(hi_matvec=False,
+    maxiter=200, tau=1e-10) with two V-cycles, the f64 oracle K6 on an f64
+    grid table built from the f64 host table; checked on the host by the
+    matrix-free f64 stencil.  First and repeat solve, replacements, peak
+    memory beside phase 13; a profiled repeat; the hi-dots' and the f64
+    x update's device time (CUDA events at this n) times their calls per
+    solve.  Returns K1's and K6's launches by dtype."""
+    import torch
+    from pysolvers_tpu_torch.linear.gmg_grid import (
+        build_grid_hierarchy_device, grid_vc_apply)
+    from pysolvers_tpu_torch.linear.krylov import _dot64, cg_solve_rr
+    from pysolvers_tpu_torch.ops import matvec
+    from pysolvers_tpu_torch.ops.grid_spmv import GridDiaMatrix
+    from pysolvers_tpu_torch.sparse.device import DiaMatrix
+    card = card_line()
+    n = m * m
+    b, x_star = p13["b"], p13["x_star"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    diags, offsets = lap2d_dia(m)
+    assembly_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A32 = DiaMatrix.from_numpy(diags, offsets, (n, n), dtype=np.float32,
+                               device=device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    h = build_grid_hierarchy_device(A32, num_levels, (m, m),
+                                    smoother="jacobi")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del A32
+    # the f64 oracle from the f64 host table, never cast up from f32
+    A64 = DiaMatrix.from_numpy(diags, offsets, (n, n), device=device)
+    del diags
+    G64 = GridDiaMatrix.from_dia_device(A64, (m, m))
+    del A64
+    torch.cuda.synchronize()
+    A_f = h.levels[-1].A_dev
+    if not isinstance(A_f, GridDiaMatrix) or A_f.dtype != torch.float32:
+        raise SystemExit(f"phase 24: the fine level is {type(A_f).__name__} "
+                         f"{A_f.dtype}")
+    levels = [(mk, type(L.A_dev).__name__, str(L.A_dev.dtype)[6:])
+              for mk, L in zip(h.ms[1:], h.levels[1:])]
+    vc2 = grid_vc_apply(2)
+    b_dev = torch.as_tensor(b, device=device)
+    replacements = []
+
+    def mv_hi(v):
+        replacements.append(1)
+        return matvec(G64, v)
+
+    def solve():
+        replacements.clear()
+        return cg_solve_rr(lambda v: matvec(A_f, v), b_dev, mv_hi=mv_hi,
+                           maxiter=200, tau=1e-10,
+                           precond=lambda r: vc2(h, r), hi_matvec=False)
+
+    reset_launches()
+    with HostReads() as reads:
+        (x, st, _), first_s = timed(solve)
+    launches = by_dtype(("K1", "K6"))
+    n_rep = len(replacements)
+    xh = x.cpu().numpy()
+    del x
+    resid = float(np.linalg.norm(b - lap2d_matvec(m, xh)) / np.linalg.norm(b))
+    err = float(np.linalg.norm(xh - x_star) / np.linalg.norm(x_star))
+    del xh
+    if (st.reason != 1 or resid > RESID_LIMIT or err > GRID_ERR_LIMIT
+            or st.k > MIXED_ITERS_FACTOR * p13["iters"]
+            or launches["K6 f32"] <= 0 or launches["K6 f64"] <= 0
+            or launches["K1 f32"] <= 0):
+        raise SystemExit(f"phase 24: reason={st.reason} iters={st.k} "
+                         f"resid={resid:.3e} err={err:.3e} launches "
+                         f"{launches}")
+    (_, st2, _), repeat_s = timed(solve)
+    peak_abs = torch.cuda.max_memory_allocated() / 1e9
+    peak = peak_abs - base / 1e9
+    phase(24, f"Lap2D(m={m}) n={n} f32 route: host assembly "
+              f"{assembly_s:.3f} s, f32 upload {upload_s:.3f} s, f32 "
+              f"hierarchy {setup_s:.3f} s; levels (m, format, dtype) "
+              f"{levels}, coarsest inverse {h.A0_inv.dtype}; oracle "
+              f"{type(G64).__name__} {G64.dtype}")
+    phase(24, f"cg_solve_rr(hi_matvec=False, maxiter=200, tau=1e-10) + 2 "
+              f"V-cycles: iters={st.k} reason=CONVERGED host rel resid="
+              f"{resid:.3e} (matrix-free f64 stencil) err={err:.3e}; first "
+              f"solve {first_s:.3f} s, repeat {repeat_s:.3f} s = "
+              f"{1e3 * repeat_s / st2.k:.3f} ms/iter ({st2.k} iters), "
+              f"replacements {n_rep}; peak device memory {peak:.2f} GB above "
+              f"the phase's start ({peak_abs:.2f} GB in all) | native (phase "
+              f"13): {p13['iters']} iters, first {p13['first_s']:.3f} s, "
+              f"repeat {p13['repeat_s']:.3f} s, peak {p13['peak_above']:.2f} "
+              f"GB above its start ({p13['peak']:.2f} GB in all), err="
+              f"{p13['err']:.3e}, hierarchy {p13['setup_s']:.3f} s; launches "
+              f"{launches}; host "
+              f"reads {reads.n} = {reads.n / st.k:.2f} per iteration | "
+              f"{card}")
+    wall, dev_s, rows = profile_call(solve)
+    # the f64 parts of an iteration alone, CUDA events at this n: three
+    # hi-dots (p·Ap, the recurrence norm, u·r; a replacement adds one) and
+    # one x update
+    p = torch.rand(n, device=device)
+    q = torch.rand(n, device=device)
+    x64 = torch.zeros(n, dtype=torch.float64, device=device)
+    alpha = torch.tensor(0.5, dtype=torch.float64, device=device)
+    dot_ms, upd_ms, _ = time_pair(lambda: _dot64(p, q),
+                                  lambda: x64.addcmul_(p.to(torch.float64),
+                                                       alpha), runs=5)
+    del p, q, x64
+    dots = 3 * st2.k + n_rep + 2          # and b's norm and u0·r0
+    if rows:
+        top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{c}"
+                        for us, k, c in rows[:8])
+        phase(24, f"profiled repeat: wall {wall:.3f} s, device {dev_s:.3f} "
+                  f"s, busy {100 * dev_s / wall:.1f} % (phase 13: "
+                  f"{p13['busy'] and round(p13['busy'], 1)} %); hi-dots "
+                  f"{dots} x {dot_ms:.4f} ms = "
+                  f"{100 * dots * dot_ms / 1e3 / dev_s:.1f} % of device "
+                  f"time, f64 x update {st2.k} x {upd_ms:.4f} ms = "
+                  f"{100 * st2.k * upd_ms / 1e3 / dev_s:.1f} %; top device "
+                  f"ops: {top} | {card}")
+    else:
+        phase(24, f"profiled repeat: the profiler saw no device time (busy "
+                  f"share not measured); hi-dot {dot_ms:.4f} ms, f64 x "
+                  f"update {upd_ms:.4f} ms per call")
+    return launches
+
+
+def mixed_short(device):
+    """Phase 25: solve() at mixed precision on fd_convection_diffusion_2d(63)
+    with no device: GMRES + ILUT through the mixed route (the f64 FGMRES
+    inner with the f32 ILUT apply), gated on the JAX package's count; the
+    native solve of the same system beside it.  Returns K1's launches."""
+    import pysolvers_tpu_torch as pt
+    H = pt.fd_convection_diffusion_2d(CD_MIXED_M)
+    x_star = np.random.default_rng(2).random(H.shape[0])
+    b = H.matvec(x_star)
+    reset_launches()
+    with HostReads() as reads:
+        st, wall = timed(lambda: pt.solve(H, b, tau=1e-10,
+                                          precision="mixed"))
+    launches = by_dtype(("K1",))
+    resid, err = check_converged("phase 25", H, b, x_star, st, device)
+    near("phase 25", st.iters, CD_MIXED_ITERS)
+    if launches["K1 f64"] <= 0 or st.soln.dtype.itemsize != 8:
+        raise SystemExit(f"phase 25: launches {launches}, {st.soln.dtype}")
+    native, native_s = timed(lambda: pt.solve(H, b, tau=1e-10))
+    check_converged("phase 25 native", H, b, x_star, native, device)
+    phase(25, f"solve(fd_convection_diffusion_2d({CD_MIXED_M}), b, tau=1e-10, "
+              f"precision='mixed') n={H.shape[0]} (GMRES + ILUT, f64 FGMRES "
+              f"inner, f32 ILUT): iters={st.iters} (JAX {CD_MIXED_ITERS}) "
+              f"reason={st.reason.name} host rel resid={resid:.3e} err="
+              f"{err:.3e}; {wall:.3f} s (setup included) | native: "
+              f"{native.iters} iters, {native_s:.3f} s; launches {launches}; "
+              f"host reads {reads.n} = {reads.n / st.iters:.2f} per "
+              f"iteration; solution {st.soln.dtype} on {st.soln.device} | "
+              f"{card_line()}")
+    return launches
+
+
 def build_bws_variant(spec):
     """(spec, library, ptxas registers) of a copy of csrc/bws_spmv.cu with
     the sizes of ``spec`` ("THREADS,UNROLL,EVICT_FIRST"), built under
@@ -2049,8 +2533,8 @@ def main():
     build_kernels()
 
     rec_k1 = check_k1("cuda")
-    k1_launches, pcg_ms = main_path("cuda")
-    front_end("cuda")
+    k1_launches, p4 = main_path("cuda")
+    p5 = front_end("cuda")
     rec_k7 = probe_k7("cuda")
     num_levels = 4
     path = unstructured_path("cuda", num_levels=num_levels)
@@ -2059,19 +2543,26 @@ def main():
         path["Ap"], path["A_bws"], path["solver"], num_levels), "cuda")
     H_blk, A_blk, gen_s, pack_s = block_operator("cuda")
     rec_bdia = check_bdia_kernels(A_blk, "cuda")
-    k4_launches = block_single(H_blk, A_blk, "cuda", gen_s, pack_s)
-    k5_launches = block_multi(H_blk, A_blk, "cuda")
+    p10 = block_single(H_blk, A_blk, "cuda", gen_s, pack_s)
+    p11 = block_multi(H_blk, A_blk, "cuda")
     del H_blk, A_blk
     fine = check_k6("cuda")
     rec_k6 = fine.pop("rec")
-    counts_grid = grid_path(fine, "cuda")
+    p13 = grid_path(fine, "cuda")
     oo_gmg("cuda")
     p16 = gmres_ilut("cuda")
     p16b = gmres_jacobi_bws(p16, "cuda")
     k1_p17 = pcg_ic("cuda")
-    k1_p18 = gmres_amg("cuda", pcg_ms)
+    p18 = gmres_amg("cuda", p4["ms_per_iter"])
     direct("cuda")
     k4_p20 = block_gmres_ic("cuda")
+    p21 = mixed_banded("cuda", p4, p5, p18)
+    p22 = mixed_unstructured("cuda", path, num_levels=num_levels)
+    p23_single, p23_multi = mixed_block("cuda", p10, p11)
+    p24 = mixed_grid("cuda", p13)
+    p13_counts = p13["counts"]
+    del p13
+    p25 = mixed_short("cuda")
     profile_unstructured(path, fine32, rec_bws)
     del path, fine32
     k1_p16 = p16["K1"]
@@ -2085,12 +2576,16 @@ def main():
              launches=k1_launches, **rec_k1,
              path_launches={"phase 16": k1_p16, "phase 16b": p16b["K1"],
                             "phase 17": k1_p17,
-                            "phase 18 mgs": k1_p18["mgs"],
-                            "phase 18 cgs2": k1_p18["cgs2"]}),
+                            "phase 18 mgs": p18["mgs"]["K1"],
+                            "phase 18 cgs2": p18["cgs2"]["K1"],
+                            **mixed_path(p21, "K1"),
+                            **mixed_path({"phase 24": p24,
+                                          "phase 25": p25}, "K1")}),
         dict(name="bws_spmv", route="cuda", source=src + "bws_spmv.cu",
              replaces="pysolvers_tpu/ops/bws_spmv.py:212",
              launches=counts["K2"], **rec_bws["K2"],
-             path_launches={"phase 16b": p16b["K2"]}),
+             path_launches={"phase 16b": p16b["K2"],
+                            **mixed_path({"phase 22": p22}, "K2")}),
         # K3 serves bws_spmv_by_class, which no solve path calls: phase 7
         # checks that it made no launch there
         dict(name="bws_spmv_classes", route="cuda",
@@ -2103,15 +2598,19 @@ def main():
              launches=rec_k7.pop("launches"), **rec_k7),
         dict(name="bdia_spmv", route="cuda", source=src + "bdia_spmv.cu",
              replaces="pysolvers_tpu/ops/spmv.py:308",
-             launches=k4_launches, **rec_bdia["K4"],
-             path_launches={"phase 20 gmres": k4_p20}),
+             launches=p10["launches"], **rec_bdia["K4"],
+             path_launches={"phase 20 gmres": k4_p20,
+                            **mixed_path({"phase 23 auto": p23_single},
+                                         "K4")}),
         dict(name="bdia_spmm", route="cuda", source=src + "bdia_spmv.cu",
              replaces="pysolvers_tpu/ops/spmv.py:505",
-             launches=k5_launches, **rec_bdia["K5"]),
+             launches=p11["launches"], **rec_bdia["K5"],
+             path_launches=mixed_path({"phase 23 k=8": p23_multi}, "K5")),
         dict(name="grid_dia_spmv", route="cuda",
              source=src + "grid_dia_spmv.cu",
              replaces="pysolvers_tpu/ops/grid_spmv.py:154",
-             launches=counts_grid["K6"], **rec_k6),
+             launches=p13_counts["K6"], **rec_k6,
+             path_launches=mixed_path({"phase 24": p24}, "K6")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,26 +1,34 @@
-"""Krylov solvers: preconditioned CG (single- and multi-RHS) and GMRES(m).
+"""Krylov solvers: preconditioned CG (single- and multi-RHS), GMRES(m),
+Richardson, and CG with f64 residual replacement.
 
-Port of ``cg_solve``, ``cg_solve_multi_rows``, ``_cg_lockstep`` and
-``gmres_solve`` in ``pysolvers_tpu/linear/krylov.py`` (reference
+Port of ``richardson_solve``, ``cg_solve``, ``cg_solve_multi_rows``,
+``_cg_lockstep``, ``cg_lockstep_rr``, ``cg_solve_rr`` and ``gmres_solve``
+in ``pysolvers_tpu/linear/krylov.py`` (reference
 PySolvers/Linear/PCGSolver.py:64-145: right-preconditioned CG with
 breakdown checks on u·r and p·Ap, convergence on ||r|| <= tau*||b||,
 trivial-b shortcut; GMRESSolver.py:27-180: right-preconditioned GMRES with
-the true-residual recheck).
+the true-residual recheck; VCycleSolver.py:79-91: the stationary
+iteration).
 
 The JAX ``lax.while_loop`` becomes a Python loop that reads the stop
 reason back to the host once per iteration (one device sync each; the
 lockstep solver reads whether any right-hand side is still running).
 GMRES reads the new Hessenberg column instead and runs the Givens
 rotations and the back substitution on the host in the solve's dtype (on
-the device they would be O(k) launches of 0-d ops per iteration).
-Capturing the iteration in a CUDA graph, and checking the reason less
-often, is later work (ROADMAP slice 3).
+the device they would be O(k) launches of 0-d ops per iteration).  The
+residual-replacement solvers turn the JAX ``lax.cond`` on a replacement
+into a Python branch: ``cg_solve_rr`` reads one packed vector per
+iteration (the recurrence norm, p·Ap and the previous u·r) and a second
+one on an iteration that replaces; ``cg_lockstep_rr`` reads one pair of
+flags per iteration.  Every such read goes through ``_host``, which tests
+count.  Capturing the iteration in a CUDA graph, and checking the reason
+less often, is later work (ROADMAP slice 3).
 
-Not ported: ``richardson_solve`` (slice 3), the column layout
-``cg_solve_multi`` and ``gmres_solve_multi`` (slice 10), and
-``cg_solve_multi_tiles`` — it carried the Krylov state in the TPU kernel's
-halo-tiled layout, which the port's K5 does not need (it reads the row
-layout directly).
+Not ported: the column layout ``cg_solve_multi`` and ``gmres_solve_multi``
+(slice 10), and ``cg_solve_multi_tiles`` — it carried the Krylov state in
+the TPU kernel's halo-tiled layout, which the port's K5 does not need (it
+reads the row layout directly; ``cg_lockstep_rr`` runs on that layout
+too).
 """
 from __future__ import annotations
 
@@ -45,6 +53,13 @@ def _dot(a, b):
     return torch.sum(a * b)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A device-to-host read of a solver iteration (one sync: GMRES's new
+    Hessenberg column, the packed scalars of the replacement solvers);
+    tests count its calls."""
+    return t.cpu().numpy()
+
+
 def _stop_reason(converged, breakdown, k: int, maxiter: int) -> int:
     """CONVERGED > BREAKDOWN > MAXITER > RUNNING, as the JAX loop orders
     them; the one host read of the iteration."""
@@ -53,6 +68,38 @@ def _stop_reason(converged, breakdown, k: int, maxiter: int) -> int:
                        torch.where(breakdown, int(StopReason.BREAKDOWN),
                                    int(last)))
     return int(code)
+
+
+def richardson_solve(matvec: Callable, b: torch.Tensor,
+                     x0: Optional[torch.Tensor] = None, *,
+                     maxiter: int = 100, tau: float = 1e-8,
+                     precond: Optional[Callable] = None,
+                     norm_fn: Optional[Callable] = None):
+    """Preconditioned stationary (Richardson) iteration:
+    x_{k+1} = x_k + M(b - A x_k), stop on ||r|| <= tau ||b||.
+
+    With M = one AMG V-cycle this is the reference's V-cycle-as-solver
+    (VCycleSolver.py:79-91).  One host read per iteration.  Returns (x,
+    KrylovState, None) like the Krylov drivers."""
+    norm = norm_fn or (lambda v: torch.sqrt(_dot(v, v)))
+    M = precond or (lambda v: v)
+    tol = tau * norm(b)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    rn = norm(r)
+    k = 0
+    reason = (StopReason.CONVERGED if _host(rn <= tol)
+              else StopReason.RUNNING)
+    while reason == StopReason.RUNNING:
+        x = x + M(r)
+        r = b - matvec(x)
+        rn = norm(r)
+        k += 1
+        if _host(rn <= tol):
+            reason = StopReason.CONVERGED
+        elif k >= maxiter:
+            reason = StopReason.MAXITER
+    return x, KrylovState(k, rn, int(reason)), None
 
 
 def cg_solve(matvec: Callable, b: torch.Tensor,
@@ -179,16 +226,262 @@ def _cg_lockstep(matmat: Callable, B: torch.Tensor, *, maxiter: int,
 
 
 # ---------------------------------------------------------------------------
+# CG with f64 residual replacement (the mixed-precision inner solvers)
+# ---------------------------------------------------------------------------
+
+def _dot64(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f64 reduction of a·c: both operands cast to f64 before the product
+    (the JAX package's hi-dots order; a dot of f32 operands accumulated in
+    f64 would round each product in f32 first)."""
+    a64 = a.to(torch.float64)
+    return torch.dot(a64, a64 if c is a else c.to(torch.float64))
+
+
+def cg_lockstep_rr(matmat: Callable, B_hi: torch.Tensor, *, mm_hi: Callable,
+                   maxiter: int = 100, tau: float = 1e-8,
+                   precond: Optional[Callable] = None,
+                   replace_every: int = 48, replace_drop: float = 3e-4,
+                   min_claim_gap: int = 4, dot: Optional[Callable] = None,
+                   bc: Optional[Callable] = None,
+                   n_rhs: Optional[int] = None):
+    """Lockstep multi-RHS CG with periodic f64 residual replacement — the
+    blocked analog of ``cg_solve_rr``: one continuous f32 pass for all k
+    right-hand sides to f64-grade tolerances.
+
+    ``B_hi`` is the f64 block, by default in ROW layout (k, n) with
+    ``dot``/``bc`` reducing each row and broadcasting per-row scalars (pass
+    others for another layout); ``matmat``/``precond`` map the f32 block to
+    itself (e.g. kernel K5, ``ops.bdia_spmm_rows``), ``mm_hi`` the f64 block
+    (the f64 oracle).  The recurrence residual block is replaced by the
+    true block B_hi − A₆₄·X₆₄ every ``replace_every`` steps, or, at least
+    ``min_claim_gap`` steps after the last replacement, when a row's
+    recurrence norm reaches its tolerance or drops below ``replace_drop``
+    times its value at the last replacement; the search directions carry
+    on.  Dots are f64 (hi-dots, ``cg_solve_rr``).  Convergence is declared
+    only on replaced (true) residuals; a row whose replaced residual comes
+    back 16× worse than its best freezes with StopReason.STALL.
+
+    One host read per iteration: whether any row still runs and whether a
+    row claims, packed.  The read comes before the iteration commits, so
+    the loop ends after one uncommitted operator product.  Returns (X64,
+    KrylovState of per-row tensors — the residuals at the last
+    replacement — , None)."""
+    f64 = torch.float64
+    dot = dot or (lambda a, c: torch.sum(a * c, dim=1))
+    bc = bc or (lambda s: s[:, None])
+    n_rhs = B_hi.shape[0] if n_rhs is None else n_rhs
+    M = precond or (lambda V: V)
+    dot64 = lambda a, c: dot(a.to(f64), c.to(f64))      # noqa: E731
+    norm = lambda V: torch.sqrt(dot64(V, V))            # noqa: E731
+    dev = B_hi.device
+    codes = {r: torch.tensor(int(r), dtype=torch.int32, device=dev)
+             for r in StopReason}
+
+    tols = tau * norm(B_hi)
+    R = B_hi.to(torch.float32)
+    U = M(R)
+    udr = dot64(U, R)
+    resid = norm(R)
+    P = U
+    X64 = torch.zeros(B_hi.shape, dtype=f64, device=dev)
+    resid_true, best_true, anchor = resid, resid, resid
+    k = torch.zeros(n_rhs, dtype=torch.int32, device=dev)
+    reason = torch.where(resid <= tols, codes[StopReason.CONVERGED],
+                         torch.where(udr == 0, codes[StopReason.BREAKDOWN],
+                                     codes[StopReason.RUNNING]))
+    it = last_rep = 0
+    while True:
+        running = reason == StopReason.RUNNING
+        AP = matmat(P)
+        pAp = dot64(P, AP)
+        breakdown_pap = running & (pAp == 0)
+        alpha = torch.where(running & ~breakdown_pap, udr / pAp, 0.0)
+        R_rec = torch.addcmul(R, AP, bc(alpha.to(R.dtype)), value=-1.0)
+        resid = torch.where(running, norm(R_rec), resid)
+        claim = running & (resid <= tols)
+        dropt = running & (resid <= replace_drop * anchor)
+        go, flag = _host(torch.stack([torch.any(running),
+                                      torch.any(claim | dropt)]))
+        if not go:
+            break
+        X64.addcmul_(P.to(f64), bc(alpha).to(f64))
+        R = R_rec
+        it += 1
+        gap = it - last_rep
+        conv = stalled = torch.zeros_like(running)
+        if gap >= replace_every or (flag and gap >= min_claim_gap):
+            Rt64 = B_hi - mm_hi(X64)
+            rt = norm(Rt64)
+            R = torch.where(bc(running), Rt64.to(R.dtype), R)
+            conv = running & (rt <= tols)
+            stalled = running & claim & (rt > 16.0 * best_true)
+            resid_true = torch.where(running, rt, resid_true)
+            best_true = torch.minimum(best_true, torch.where(
+                running, rt, torch.full_like(rt, float("inf"))))
+            anchor = torch.where(running, rt, anchor)
+            last_rep = it
+            del Rt64
+        resid = torch.where(running & conv, resid_true, resid)
+        U = M(R)
+        udr_new = dot64(U, R)
+        breakdown_udr = running & (udr_new == 0) & ~conv
+        beta = torch.where(running & (udr != 0), udr_new / udr, 0.0)
+        P = torch.where(bc(running),
+                        torch.addcmul(U, P, bc(beta.to(U.dtype))), P)
+        udr = udr_new
+        k = k + running.to(torch.int32)
+        reason = torch.where(
+            ~running, reason,
+            torch.where(conv, codes[StopReason.CONVERGED],
+                        torch.where(stalled, codes[StopReason.STALL],
+                                    torch.where(breakdown_pap | breakdown_udr,
+                                                codes[StopReason.BREAKDOWN],
+                                                torch.where(
+                                                    k >= maxiter,
+                                                    codes[StopReason.MAXITER],
+                                                    codes[StopReason.RUNNING]
+                                                )))))
+    return X64, KrylovState(k, resid_true, reason), None
+
+
+def cg_solve_rr(matvec: Callable, b_hi: torch.Tensor, *, mv_hi: Callable,
+                maxiter: int = 100, tau: float = 1e-8,
+                precond: Optional[Callable] = None,
+                replace_every: int = 6, replace_drop: float = 3e-4,
+                hi_dots: bool = True, hi_matvec: bool = False,
+                norm_fn: Optional[Callable] = None):
+    """Preconditioned CG with periodic f64 residual replacement (Van der
+    Vorst & Ye 2000).
+
+    An f32 CG's true residual stalls at ~eps32·κ(A): the recurrence
+    residual drifts from b − A·x.  Here the recurrence residual is replaced
+    by the true residual b_hi − A₆₄·x₆₄ (``mv_hi``, the f64 oracle, against
+    the f64-accumulated x) whenever ``replace_every`` steps have passed,
+    when the recurrence norm reaches the tolerance, or when the last
+    residual fell below ``replace_drop`` times its value at the last
+    replacement; the search direction carries on, so the method converges
+    like f64 CG at f32 kernel speed.
+
+    The vector updates are ``addcmul``s, rounded once like the fused
+    multiply-adds XLA makes of the JAX package's expressions (and one
+    kernel each on the card instead of two).  ``matvec``/``precond`` run in f32, ``mv_hi`` in f64; ``b_hi`` is the
+    f64 right-hand side.  Convergence is declared only on replaced (true)
+    residuals.  A replacement more than 4× larger than the previous
+    residual restarts the direction (p = u).  The best replaced iterate is
+    kept; a replacement more than 16× above it, or a non-finite residual,
+    stops with StopReason.STALL and returns that iterate (NaN-proof: the
+    comparison is negated).  ``hi_dots``: dots and norms reduce the f32
+    values cast to f64.  ``hi_matvec``: the recurrence runs in f64 on
+    ``mv_hi``, only the preconditioner in f32.
+
+    Host reads (``_host``): one per iteration — the recurrence norm, p·Ap
+    and the previous iteration's u·r, packed — and a second on an iteration
+    that replaces (the true norm); a stop on MAXITER or STALL reads the
+    last u·r once more, since a zero there makes it BREAKDOWN.  A zero u·r
+    found at the next iteration's read ends the solve before that
+    iteration commits, as the JAX loop's stop would.  The host compares in
+    the norm's dtype.  The best iterate is copied only on a replacement
+    that improves it.  Returns ``(x64, KrylovState, None)``.
+    """
+    f64 = torch.float64
+    dot = _dot64 if hi_dots else _dot
+    norm = norm_fn or (lambda v: torch.sqrt(dot(v, v)))
+    M = precond or (lambda v: v)
+    # working dtype of the recurrence vectors (r, p): f64 when the
+    # recurrence matvec runs hi, f32 otherwise
+    wt = f64 if hi_matvec else torch.float32
+    mv_rec = mv_hi if hi_matvec else matvec
+    if hi_matvec:
+        M_rec = ((lambda v: M(v.to(torch.float32)).to(f64))
+                 if precond is not None else (lambda v: v))
+    else:
+        M_rec = M
+    r = b_hi.to(wt)                       # x0 = 0
+    b_norm = norm(r)
+    u = M_rec(r)
+    udr = dot(u, r)
+    p = u
+
+    def read(*ts):
+        return _host(torch.stack([t.to(f64) for t in ts]))
+
+    scal = np.dtype(str(b_norm.dtype).split(".")[1]).type
+    h = read(b_norm, tau * b_norm, udr)
+    resid, tol = scal(h[0]), scal(h[1])
+    anchor, r_best = resid, float(resid)
+    x64 = torch.zeros_like(b_hi, dtype=f64)
+    x_best = None                        # zeros until a replacement is best
+    k = 0
+    reason = (StopReason.CONVERGED if resid <= tol else
+              StopReason.BREAKDOWN if h[2] == 0 else StopReason.RUNNING)
+    while reason == StopReason.RUNNING:
+        Ap = mv_rec(p)
+        pAp = dot(p, Ap)
+        alpha = torch.where(pAp == 0, 0.0, udr / pAp)
+        r_rec = torch.addcmul(r, Ap, alpha.to(wt), value=-1.0)
+        rn_rec_t = norm(r_rec)
+        h = read(rn_rec_t, pAp, udr)
+        if h[2] == 0:
+            # the previous iteration's u·r was zero: the JAX loop stopped
+            # there with BREAKDOWN, before this iteration
+            reason = StopReason.BREAKDOWN
+            break
+        breakdown_pap = h[1] == 0
+        rn_rec = scal(h[0])
+        x64.addcmul_(p.to(f64), alpha.to(f64))
+        k += 1
+        do_replace = (k % replace_every == 0 or rn_rec <= tol
+                      or resid <= scal(replace_drop) * anchor)
+        if do_replace:
+            r = (b_hi - mv_hi(x64)).to(wt)
+            resid_new = scal(read(norm(r))[0])
+        else:
+            r, resid_new = r_rec, rn_rec
+        del r_rec
+        restart_dir = do_replace and resid_new > 4.0 * resid
+        # NaN-proof: a NaN residual fails every comparison
+        diverged = ((do_replace and not float(resid_new) <= 16.0 * r_best)
+                    or not np.isfinite(resid_new))
+        if do_replace:
+            anchor = resid_new
+            if resid_new < r_best:
+                x_best, r_best = x64.clone(), float(resid_new)
+        resid = resid_new
+        if do_replace and resid <= tol:
+            reason = StopReason.CONVERGED
+            break
+        if breakdown_pap:
+            reason = StopReason.BREAKDOWN
+            break
+        u = M_rec(r)
+        udr_new = dot(u, r)
+        beta = (torch.zeros_like(udr_new) if restart_dir else
+                torch.where(udr == 0, 0.0, udr_new / udr))
+        p = torch.addcmul(u, p, beta.to(wt))
+        udr = udr_new
+        if k >= maxiter or diverged:
+            # u·r = 0 outranks MAXITER and STALL, as in the JAX loop
+            reason = (StopReason.BREAKDOWN if read(udr)[0] == 0 else
+                      StopReason.MAXITER if k >= maxiter else
+                      StopReason.STALL)
+    # a non-converged exit takes the best replaced iterate when the final
+    # state is worse (NaN-proof: not (resid <= r_best))
+    take_best = (reason != StopReason.CONVERGED
+                 and not float(resid) <= r_best)
+    if take_best:
+        x_out = torch.zeros_like(x64) if x_best is None else x_best
+        r_out = r_best
+    else:
+        x_out, r_out = x64, float(resid)
+    return (x_out, KrylovState(k, torch.tensor(r_out, dtype=f64),
+                               int(reason)), None)
+
+
+# ---------------------------------------------------------------------------
 # GMRES(m) with restarts
 # ---------------------------------------------------------------------------
 
 _RESTART = -1     # cycle full but not done (the JAX loop's sentinel)
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    """The device-to-host read of a GMRES iteration (the new Hessenberg
-    column, one sync); tests count its calls."""
-    return t.cpu().numpy()
 
 
 def gmres_solve(matvec: Callable, b: torch.Tensor,

@@ -12,6 +12,7 @@ or a failed build raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -25,6 +26,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
+
+# Launches per (kernel id, dtype name) since the last reset, e.g.
+# ("K1", "float32"): every kernel wrapper adds one here where it adds one to
+# its own launch count, so a run can tell a path's f32 launches from its f64
+# ones (the mixed-precision routes run both).
+launches_by_dtype: collections.Counter = collections.Counter()
+
+
+def count_launch(kernel: str, dtype) -> None:
+    launches_by_dtype[kernel, str(dtype).split(".")[-1]] += 1
 
 
 def _nvcc() -> str:

@@ -165,6 +165,7 @@ def bws_spmv(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
     _check(_entry("bws_spmv", A.dtype, L.indptr.dtype)(
         args[0], L.n_blocks, *args[1:]), "K2 (bws_spmv)")
     bws_spmv_launches += 1
+    _cuda_build.count_launch("K2", A.dtype)
     return y
 
 
@@ -189,6 +190,7 @@ def bws_spmv_by_class(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
         _check(fn(L.class_blocks.data_ptr() + 4 * starts[c], n, *args),
                "K3 (bws_spmv_classes)")
         bws_spmv_classes_launches += 1
+        _cuda_build.count_launch("K3", A.dtype)
     return y
 
 

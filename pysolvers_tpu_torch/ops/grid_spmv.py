@@ -256,4 +256,5 @@ def grid_dia_spmv(A: GridDiaMatrix, x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"K6 (grid_dia_spmv) launch failed: CUDA error "
                            f"{rc}")
     grid_dia_spmv_launches += 1
+    _cuda_build.count_launch("K6", A.dtype)
     return y

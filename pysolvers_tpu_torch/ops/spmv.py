@@ -145,6 +145,7 @@ def dia_spmv(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"K1 (dia_spmv) launch failed: CUDA error {rc}")
     dia_spmv_launches += 1
+    _cuda_build.count_launch("K1", A.dtype)
     return y
 
 
@@ -232,6 +233,7 @@ def bdia_spmv(A: BdiaMatrix, x: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"K4 (bdia_spmv) launch failed: CUDA error {rc}")
     bdia_spmv_launches += 1
+    _cuda_build.count_launch("K4", A.dtype)
     return y
 
 
@@ -263,6 +265,7 @@ def bdia_spmm_rows(A: BdiaMatrix, V: torch.Tensor) -> torch.Tensor:
                 raise RuntimeError(f"K5 (bdia_spmm) launch failed: CUDA "
                                    f"error {rc}")
             bdia_spmm_launches += 1
+            _cuda_build.count_launch("K5", A.dtype)
     return Y
 
 

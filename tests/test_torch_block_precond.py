@@ -272,11 +272,12 @@ def test_precond_cache_reuses_and_sees_in_place_updates():
 
 
 # (solve() arguments, right-hand sides: None for one, else k columns);
-# single-RHS GMRES and IC are ported (tests/test_torch_gmres.py)
+# single-RHS GMRES and IC are ported (tests/test_torch_gmres.py), and
+# precision="mixed" (tests/test_torch_mixed_block.py)
 UNPORTED = {
-    "mixed": (dict(precision="mixed"), None),
+    "mixed": (dict(precision="mixed", mesh=object()), None),
     "gmres": (dict(method="gmres"), 2),
-    "ic": (dict(precond="ic", precision="mixed"), None),
+    "ic": (dict(precond="ic", precision="mixed", mesh=object()), 2),
     "mesh": (dict(mesh=object()), None),
 }
 

@@ -1,5 +1,6 @@
 """Kernels K1, K2/K3, K4/K5, K6 and K7 and the port's main paths (GMRES,
-ILU(t)/IC(t) and the direct solve among them) on a CUDA device,
+ILU(t)/IC(t), the direct solve and the mixed-precision routes among
+them) on a CUDA device,
 against the plain twins and the CPU path.  Every test here needs the card and skips without
 one; this file imports neither jax nor pysolvers_tpu, so it runs on a GPU
 machine without JAX:
@@ -835,3 +836,133 @@ def test_gmres_reads_the_host_once_per_iteration(cuda, monkeypatch):
         s5, r5 = syncs(5, orthog)
         s10, r10 = syncs(10, orthog)
         assert s10 - s5 == 5 and r10 - r5 == 5
+
+
+# ---------------------------------------------------------------------------
+# Mixed precision: f32 inner solves on the kernels, the f64 oracle on them
+# ---------------------------------------------------------------------------
+
+def _mixed_case(route, cuda):
+    """(host matrix, right-hand sides (n,) or (n, k), the solve, the kernel
+    of the route) for a mixed-precision route on the card."""
+    rng = np.random.default_rng(11)
+    if route in ("dia", "bws"):
+        H = (pt.problems.fd_laplacian_2d(64) if route == "dia" else
+             pt.problems.fem_poisson_2d_unstructured(65, seed=3))
+        b = H.matvec(rng.random(H.shape[0]))
+        fmt = "auto" if route == "dia" else "bws"
+        solver = pt.PCG(pt.CommonSolverArgs(maxiter=500, tau=1e-10),
+                        precond=pt.AMG(num_iters=2, num_levels=3,
+                                       matrix_format=fmt),
+                        precision="mixed").make_solver()
+        return H, b, lambda: solver.solve(H, b), solver, (
+            "K1" if route == "dia" else "K2")
+    H = pt.problems.fd_vector_laplacian_2d(32, b=5, coupling=0.2)
+    A = pt.BdiaMatrix.from_host_csr(H, 5, device=cuda)
+    k = 1 if route == "bdia" else 3
+    B = np.stack([H.matvec(rng.random(H.shape[0])) for _ in range(k)], 1)
+    b = B[:, 0] if k == 1 else B
+    return H, b, lambda: pt.solve(A, b, tau=1e-10, maxiter=2000,
+                                  precision="mixed"), None, (
+        "K4" if k == 1 else "K5")
+
+
+@pytest.mark.parametrize("route", ["dia", "bws", "bdia", "bdia_k3"])
+def test_mixed_route_runs_f32_kernels_and_an_f64_oracle(cuda, route,
+                                                        monkeypatch):
+    """precision="mixed" on the card: the inner operator is f32 on its
+    kernel (DIA/K1, the RCM-ordered BWS pack/K2, K4, K5), the oracle's
+    launches are f64 on the same kernel, no twin runs, and the solution is
+    f64 on the current CUDA device with a host residual within tau."""
+    from pysolvers_tpu_torch.ops import _cuda_build
+    boom = lambda *a: (_ for _ in ()).throw(AssertionError("twin on CUDA"))
+    for mod, name in ((spmv, "dia_spmv_torch"), (spmv, "bdia_spmm_torch"),
+                      (spmv, "bdia_spmv_torch"), (tbws, "bws_spmv_torch")):
+        monkeypatch.setattr(mod, name, boom)
+    H, b, run, solver, kernel = _mixed_case(route, cuda)
+    _cuda_build.launches_by_dtype.clear()
+    st = run()
+    torch.cuda.synchronize()
+    counts = _cuda_build.launches_by_dtype
+    assert counts[kernel, "float32"] > 0 and counts[kernel, "float64"] > 0
+    assert st.success and st.soln.dtype == torch.float64
+    assert st.soln.device == torch.device("cuda", torch.cuda.current_device())
+    X = st.soln.cpu().numpy().reshape(H.shape[0], -1)
+    Bh = np.asarray(b).reshape(H.shape[0], -1)
+    for j in range(X.shape[1]):
+        assert (np.linalg.norm(Bh[:, j] - H.matvec(X[:, j]))
+                <= 1e-10 * np.linalg.norm(Bh[:, j]))
+    if solver is not None:
+        A32, A64 = solver._mx["A32"], solver._mx["A64"]
+        assert A32.dtype == torch.float32 and A64.dtype == torch.float64
+        assert A32.device.type == A64.device.type == "cuda"
+        fmt = pt.DiaMatrix if route == "dia" else pt.BwsMatrix
+        assert isinstance(A32, fmt) and isinstance(A64, fmt)
+
+
+def test_cg_solve_rr_reads_the_host_once_per_iteration(cuda, monkeypatch):
+    """Without replacements (a long cadence, no drop trigger), ten more
+    iterations cost ten more synchronizations and ten more host reads."""
+    import warnings
+    from pysolvers_tpu_torch.linear import krylov
+    H = pt.problems.fd_laplacian_2d(64)
+    A32 = pt.DiaMatrix.from_host_csr(H, dtype=np.float32, device=cuda)
+    A64 = pt.DiaMatrix.from_host_csr(H, dtype=np.float64, device=cuda)
+    b = torch.as_tensor(H.matvec(np.ones(H.shape[0])), device=cuda)
+    reads = []
+    real = krylov._host
+    monkeypatch.setattr(krylov, "_host", lambda t: reads.append(1) or real(t))
+
+    def syncs(maxiter):
+        reads.clear()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, st, _ = krylov.cg_solve_rr(
+                    lambda v: pt.matvec(A32, v), b,
+                    mv_hi=lambda v: pt.matvec(A64, v), maxiter=maxiter,
+                    tau=1e-30, replace_every=1000, replace_drop=0.0)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert st.k == maxiter
+        return sum("synchroniz" in str(x.message) for x in w), len(reads)
+
+    s10, r10 = syncs(10)
+    s20, r20 = syncs(20)
+    assert s20 - s10 == 10 and r20 - r10 == 10
+
+
+def test_gmg_f32_route_on_cuda_runs_k6(cuda, monkeypatch):
+    """The f32 device-probed hierarchy with K6 on its fine levels (the
+    threshold lowered to reach them at m = 127), cg_solve_rr with two
+    V-cycles and K6 in f64 on the f64 grid table as the oracle."""
+    import pysolvers_tpu_torch.linear.gmg_grid as tgg
+    from pysolvers_tpu_torch.ops import _cuda_build
+    from pysolvers_tpu_torch.ops.grid_spmv import GridDiaMatrix
+    from pysolvers_tpu_torch.linear.krylov import cg_solve_rr
+    monkeypatch.setattr(tgg, "GRID_KERNEL_MIN_M", 63)
+    m = 127
+    H = pt.problems.fd_laplacian_2d(m)
+    b = H.matvec(np.random.default_rng(0).random(H.shape[0]))
+    h = tgg.build_grid_hierarchy_device(
+        pt.DiaMatrix.from_host_csr(H, dtype=np.float32, device=cuda), 4,
+        (m, m), smoother="jacobi")
+    assert h.A0_inv.dtype == torch.float32
+    G64 = GridDiaMatrix.from_dia_device(
+        pt.DiaMatrix.from_host_csr(H, dtype=np.float64, device=cuda), (m, m))
+    vc2 = tgg.grid_vc_apply(2)
+    A_f = h.levels[-1].A_dev
+    _cuda_build.launches_by_dtype.clear()
+    x, st, _ = cg_solve_rr(lambda v: pt.matvec(A_f, v),
+                           torch.as_tensor(b, device=cuda),
+                           mv_hi=lambda v: pt.matvec(G64, v), maxiter=200,
+                           tau=1e-10, precond=lambda r: vc2(h, r),
+                           hi_matvec=False)
+    counts = _cuda_build.launches_by_dtype
+    assert st.reason == 1 and x.dtype == torch.float64
+    assert counts["K6", "float32"] > 0 and counts["K6", "float64"] > 0
+    assert counts["K1", "float32"] > 0                 # the m <= 31 levels
+    xh = x.cpu().numpy()
+    assert np.linalg.norm(b - H.matvec(xh)) <= 1.01e-10 * np.linalg.norm(b)

@@ -35,5 +35,6 @@ def test_scan_sees_the_package():
                 "sparse/bws.py", "problems/fem.py", "sparse/bdia.py",
                 "linear/block_precond.py", "ops/grid_spmv.py",
                 "linear/gmg.py", "linear/gmg_grid.py", "linear/amg_rs.py",
-                "linear/ilu.py", "linear/arnoldi.py", "linear/operator.py"):
+                "linear/ilu.py", "linear/arnoldi.py", "linear/operator.py",
+                "linear/refine.py"):
         assert ROOT / "pysolvers_tpu_torch" / rel in FILES

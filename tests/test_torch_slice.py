@@ -71,19 +71,25 @@ def test_frozen_preconditioner_is_reused():
     np.testing.assert_array_equal(st1.soln.numpy(), st2.soln.numpy())
 
 
+# precision="mixed" runs since slice 7 (tests/test_torch_mixed*.py); its
+# multi-RHS forms on a scalar HostCSR wait for slice 10
 UNPORTED = {
-    "precision_mixed": lambda H, b: pt.solve(H, b, precision="mixed"),
+    "precision_mixed": lambda H, b: pt.solve(H, np.stack([b, b], axis=1),
+                                             precision="mixed",
+                                             device="cpu"),
     "multi_rhs": lambda H, b: pt.solve(H, np.stack([b, b], axis=1),
                                        precond="amg"),
     "mesh": lambda H, b: pt.solve(H, b, mesh=object()),
-    "pcg_mixed": lambda H, b: pt.PCG(precision="mixed"),
+    "pcg_mixed": lambda H, b: pt.PCG(
+        precision="mixed", device="cpu").make_solver().solve(
+            H, np.stack([b, b], axis=1)),
     "pcg_mesh": lambda H, b: pt.PCG(mesh=object()),
     "vcycle_bws_mesh": lambda H, b: pt.AMGVCycle(matrix_format="bws",
                                                  mesh=object()),
     "pcg_mixed_bws_pair": lambda H, b: pt.PCG(
-        precision="mixed", precond=pt.AMG(matrix_format="bws")
-    ).make_solver().solve((H, pt.BwsMatrix.from_host_csr(
-        H, use_rcm=False, device="cpu")), b),
+        precision="mixed", precond=pt.AMG(matrix_format="bws"),
+        device="cpu").make_solver().solve((H, pt.BwsMatrix.from_host_csr(
+            H, use_rcm=False, device="cpu")), np.stack([b, b], axis=1)),
     "amg_galerkin_device": lambda H, b: pt.AMG(galerkin="device"),
     "vcycle_mesh": lambda H, b: pt.AMGVCycle(mesh=object()),
     "trisolve_block": lambda H, b: pt.GMRES(
