@@ -11,9 +11,10 @@ more (any failure raises and the script exits non-zero):
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device is a failure;
 2. build of kernels K1 (``csrc/dia_spmv.cu``), K2/K3 (``csrc/bws_spmv.cu``),
-   K7 (``csrc/lane_gather_probe.cu``), K4/K5 (``csrc/bdia_spmv.cu``) and K6
-   (``csrc/grid_dia_spmv.cu``), one nvcc each, all at once, and their
-   ptxas reports (registers, spills; a spill in K4/K5 fails);
+   K7 (``csrc/lane_gather_probe.cu``), K4/K5 (``csrc/bdia_spmv.cu``), K6
+   (``csrc/grid_dia_spmv.cu``) and K8 (``csrc/block_trisolve.cu``), one
+   nvcc each, all at once, and their ptxas reports (registers, spills; a
+   spill in K4/K5 fails);
 3. K1 against its plain twin on the card, f32 and f64: bench.py's two
    operators, the main path's fine operator, a rectangular and a 9-offset
    operator; error bound, then CUDA-event times of both and of the
@@ -68,21 +69,30 @@ more (any failure raises and the script exits non-zero):
    ``GMGVCycle(matrix_format="grid")``, checked on the host with scipy;
 16. GMRES + ILUT, ``solve()``'s nonsymmetric default: ``pt.solve(H, b,
    tau=1e-10)`` with no method, preconditioner or device on
-   fd_convection_diffusion_2d(255) (n = 65,025), full GMRES with
-   level-scheduled ILUT solves and K1 for every product; within 5 % of the
-   JAX package's iteration count, the plans' level chunks, ms per ILUT
-   apply beside the bytes bound of the two solves;
+   fd_convection_diffusion_2d(255) (n = 65,025), full GMRES with the
+   ILUT factors applied by block-banded solves ("auto" on the card: K8,
+   one launch per factor) and K1 for every product; within 5 % of the JAX
+   package's block-mode iteration count, the plans' block reach, ms per
+   ILUT apply beside the bytes bound of the two solves; the same solve
+   capped at 40 iterations in block and in explicit "level" mode, ms per
+   apply and per iteration side by side;
    16b. the same system by FGMRES with ``trisolve_mode="jacobi_bws"``:
    one K2 launch per Jacobi-sweep product on the strict factor;
 17. PCG + IC(t), ``solve()``'s default for SPD n < 20,000, on
-   fd_laplacian_2d(129);
+   fd_laplacian_2d(129), block solves (K8) under "auto";
+26. K8 (``csrc/block_trisolve.cu``) against its twin on phase 16's ILUT
+   factors and phase 17's IC factor and its transpose, f32 and f64:
+   error bound, CUDA-event times beside the bytes bound and the
+   level-scheduled solve of the same factor (no library call solves a
+   banded triangular system);
 18. GMRES + SA-AMG on phase 4's operator (n = 1,046,529) with MGS and with
    CGS2: at most 10 iterations, ms per iteration (the median of five
    frozen repeats) beside phase 4's PCG;
 19. the direct solve on the card: ``solve()`` with n = 484 and
    ``DefaultDirect`` on a DiaMatrix, against scipy's ``spsolve``;
-20. the block lane's GMRES (K4) and its CG with the scalar IC(t), on
-   fd_vector_laplacian_2d(64, b=5, coupling=0.2) (n = 20,480);
+20. the block lane's GMRES (K4) and its CG with the scalar IC(t) (an f32
+   factor in f64 block plans, K8), on fd_vector_laplacian_2d(64, b=5, coupling=0.2) (n =
+   20,480);
 21. mixed precision (f32 inner Krylov on the kernels, f64 refinement, the
    f64 oracle on the kernels in f64), banded: ``solve(..., precision=
    "mixed")`` with no device on phase 5's system, and PCG and GMRES with
@@ -102,15 +112,19 @@ more (any failure raises and the script exits non-zero):
    profiled repeat and the device time of the hi-dots and the f64 x
    update;
 25. mixed precision, short: ``solve()`` on fd_convection_diffusion_2d(63)
-   (GMRES + ILUT, the f64 FGMRES inner) gated on the JAX package's count;
+   (GMRES + ILUT, the f64 FGMRES inner, f32 block plans on K8) gated on
+   the JAX package's block-mode count;
 15. (run last, since a profiler session may leave host overhead on later
    launches) the unstructured path under ``torch.profiler``: phase 7's
    re-solve (busy share, K2's share, launches per iteration) and the
    device time alone of K2, K3 and the CSR call on its fine operator;
    then phase 16's solve capped at 40 iterations (busy share over the
    median unprofiled wall, device ops per iteration, the shares of K1, of
-   MGS and of the ILUT applies).
+   K8, of MGS and of the ILUT applies); then phase 17's IC(t) apply by
+   block and by level solves (device time and ops per apply).
 
+Phases 16, 17, 20 and 25 run "auto", which is "block" on the card, with
+the block path's degrade warnings turned into errors, and must launch K8.
 Phases 16-25 gate on a CONVERGED stop, a host residual <= 1e-9 (scipy,
 or the matrix-free stencil) and the error against x* (1e-6; 1e-5 on the
 unstructured and block lanes), and print the iterations, ms per
@@ -133,6 +147,7 @@ per thread, evict-first loads of values and indices; by default
 ``BWS_SWEEP``, the kept design first), checks each against the twin and
 times it against the others and the CSR product (``bws_sweep``).
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -141,6 +156,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -186,8 +202,11 @@ GRID_ERR_LIMIT = 1e-6
 OO_GMG_M, OO_GMG_LEVELS = 1023, 6
 # phases 16-20, GMRES, ILU(t)/IC(t) and the direct solve: the problem sizes
 # and the iteration counts the JAX package takes for the same calls on the
-# CPU in f64 (tau = 1e-10, b = A x*, x* from default_rng(2)); the card must
-# land within ITERS_SLACK of them
+# CPU in f64 (tau = 1e-10, b = A x*, x* from default_rng(2)), with its ILU
+# applied by block solves as on its accelerator where the port's "auto"
+# runs K8 (phases 16, 17, 20's IC and 25: tests/jax_block_mode_counts.py;
+# equal to its level-mode counts at these sizes); the card must land
+# within ITERS_SLACK of them
 CD_M, CD_ITERS = 255, 617          # 16: fd_convection_diffusion_2d, GMRES+ILUT
 IC_M, IC_ITERS = 129, 140          # 17: fd_laplacian_2d, PCG + IC(t)
 GMRES_AMG_MAX_ITERS = 10           # 18: GMRES + SA-AMG at m = 1023 (JAX: 9)
@@ -206,7 +225,14 @@ CD_MIXED_M, CD_MIXED_ITERS = 63, 396
 # iterations
 PROFILE_MAXITER = 40
 KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv",
-           "grid_dia_spmv")
+           "grid_dia_spmv", "block_trisolve")
+# K8 against its twin, as max|x_K8 - x_twin| / max|x_twin|: the kernel sums
+# each row's products by warp shuffles, the twin by torch's matrix-vector
+# products, and the recurrence carries each block's rounding into the next
+K8_TOL = {"float32": 1e-5, "float64": 1e-12}
+# the block path's degrade warnings (linear/ilu.py), errors in phases 16,
+# 17, 20 and 25
+DEGRADE = r".*(not banded enough for the block|degrading to approximate)"
 # K2's sizes for --bws-sweep: threads per block, loads in flight per
 # thread, evict-first loads (1) or plain ones (0); the kept design first
 BWS_SWEEP = ("256,4,1", "256,4,0", "128,4,1", "512,4,1", "256,8,1",
@@ -574,9 +600,10 @@ def front_end(device, m=150):
 
 def reset_launches():
     """Every kernel's launch count to 0, the counts by dtype included."""
-    from pysolvers_tpu_torch.ops import _cuda_build, bws_spmv, grid_spmv
-    from pysolvers_tpu_torch.ops import probe, spmv
+    from pysolvers_tpu_torch.ops import _cuda_build, block_trisolve
+    from pysolvers_tpu_torch.ops import bws_spmv, grid_spmv, probe, spmv
     _cuda_build.launches_by_dtype.clear()
+    block_trisolve.block_trisolve_launches = 0
     spmv.dia_spmv_launches = 0
     spmv.bdia_spmv_launches = spmv.bdia_spmm_launches = 0
     bws_spmv.bws_spmv_launches = bws_spmv.bws_spmv_classes_launches = 0
@@ -585,12 +612,14 @@ def reset_launches():
 
 
 def launches():
-    from pysolvers_tpu_torch.ops import bws_spmv, grid_spmv, probe, spmv
+    from pysolvers_tpu_torch.ops import block_trisolve, bws_spmv, grid_spmv
+    from pysolvers_tpu_torch.ops import probe, spmv
     return dict(K1=spmv.dia_spmv_launches, K2=bws_spmv.bws_spmv_launches,
                 K3=bws_spmv.bws_spmv_classes_launches,
                 K4=spmv.bdia_spmv_launches, K5=spmv.bdia_spmm_launches,
                 K6=grid_spmv.grid_dia_spmv_launches,
-                K7=probe.lane_gather_probe_launches)
+                K7=probe.lane_gather_probe_launches,
+                K8=block_trisolve.block_trisolve_launches)
 
 
 def build_kernels():
@@ -1601,31 +1630,67 @@ def peak_above(base):
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
-def plan_shape(plan):
-    """(level chunks, chunk width, ELL slots per row) of a TriSolvePlan."""
-    return (int(plan.levels.shape[0]), int(plan.levels.shape[1]),
-            int(plan.ell_data.shape[1]))
+def block_shape(plan):
+    """(blocks, block size, block reach) of a BlockTriSolvePlan."""
+    return plan.nb, plan.bs, plan.p
 
 
-def trisolve_bytes(plans):
-    """The bytes level-scheduled solves with ``plans`` must move at least:
-    each plan's ELL values and int32 columns and its diagonal, and three
-    vectors (b read, x written and read back by the next factor)."""
-    n = plans[0].n
-    size = plans[0].ell_data.element_size()
-    return sum(p.ell_data.numel() * (size + 4) + size * (n + 1)
-               for p in plans) + 3 * n * size
+def block_bytes(plans):
+    """The bytes block solves with ``plans`` must move at least: each
+    plan's s_hat and dinv, and three vectors (b read, x written and read
+    back by the next factor)."""
+    size = plans[0].dinv.element_size()
+    return (sum((p.s_hat.numel() + p.dinv.numel()) * size for p in plans)
+            + 3 * plans[0].n * size)
+
+
+def factor_bytes(factors, size):
+    """The bytes the same triangular solves need at least when read from
+    the factors themselves (CSR: each value, its int32 column index and
+    the int32 row pointers) rather than from the plans' dense blocks, with
+    the same vectors as ``block_bytes`` (two for one factor)."""
+    n = factors[0].shape[0]
+    return (sum(T.nnz * (size + 4) + 4 * (n + 1) for T in factors)
+            + (len(factors) + 1) * n * size)
+
+
+@contextlib.contextmanager
+def no_degrade():
+    """The block path's degrade warnings raise (phases 16, 17, 20, 25)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=DEGRADE)
+        yield
+
+
+def capped_ms_per_iter(H, b, mode, device):
+    """ms per iteration of phase 16's solve capped at PROFILE_MAXITER
+    iterations, ILUT applied in ``mode``, the preconditioner formed
+    beforehand (frozen)."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    solver = pt.GMRES(pt.CommonSolverArgs(maxiter=PROFILE_MAXITER, tau=1e-10,
+                                          failOnMaxiter=False),
+                      precond=pt.ILUTPreconditionerType(trisolve_mode=mode),
+                      device=device).make_solver()
+    solver.freeze_matrix()
+    solver.freeze_prec()
+    solver.solve(H, b)                   # forms the factors and the plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = solver.solve(H, b)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / st.iters
 
 
 def gmres_ilut(device):
     """Phase 16: solve() with every argument but tau at its default on the
     nonsymmetric convection-diffusion operator: full GMRES preconditioned by
-    ILUT with level-scheduled solves, K1 for the operator.  Returns the
-    problem and the numbers the kernels line and the profile need."""
+    ILUT with block solves ("auto" on the card, K8), K1 for the operator;
+    then ms per apply and per iteration (capped at PROFILE_MAXITER) in
+    block and in explicit "level" mode.  Returns the problem and the
+    numbers the kernels line, phase 26 and the profile need."""
     import torch
     import pysolvers_tpu_torch as pt
-    from pysolvers_tpu_torch.linear import ilu
-    from pysolvers_tpu_torch.ops.trisolve import build_trisolve_plan
     card = card_line()
     H = pt.fd_convection_diffusion_2d(CD_M)
     n = H.shape[0]
@@ -1634,47 +1699,64 @@ def gmres_ilut(device):
     base = peak_reset()
     reset_launches()
     t0 = time.perf_counter()
-    st = pt.solve(H, b, tau=1e-10)
+    with no_degrade():
+        st = pt.solve(H, b, tau=1e-10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches()
+    k8 = by_dtype(("K8",))
     peak = peak_above(base)
     resid, err = check_converged("phase 16", H, b, x_star, st, device)
     near("phase 16", st.iters, CD_ITERS)
-    # one product per iteration, one at the start, one true residual
-    if counts["K1"] != st.iters + 2:
+    # one product per iteration, one at the start, one true residual; one
+    # K8 launch per factor, one apply per iteration and one to form x
+    if counts["K1"] != st.iters + 2 or counts["K8"] != 2 * (st.iters + 1):
         raise SystemExit(f"phase 16: launches {counts}, {st.iters} iters")
     # the same preconditioner formed alone: its setup, plans and applies
+    ilut = pt.ILUTPreconditionerType()
     t0 = time.perf_counter()
-    L, U = ilu.ilut_factor(H, 1e-3 * ilu._AUTO_SEED, 15.0)
+    L, U = ilut._factor(H, device)
     factor_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    plans = (build_trisolve_plan(L, lower=True, unit_diag=True,
-                                 device=device),
-             build_trisolve_plan(U, lower=False, device=device))
+    with no_degrade():
+        prec = ilut.form(H, device=device)
     torch.cuda.synchronize()
-    plans_s = time.perf_counter() - t0
-    prec = pt.ILUTPreconditionerType().form(H, device=device)
+    form_s = time.perf_counter() - t0
+    plans = prec.state
     v = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
                         device=device)
-    apply_ms = wall_ms(lambda: prec.apply_any(v))
-    nbytes = trisolve_bytes(plans)
+    apply_ms = wall_ms(lambda: prec.apply_any(v), calls=20)
+    level = pt.ILUTPreconditionerType(trisolve_mode="level").form(
+        H, device=device)
+    level_ms = wall_ms(lambda: level.apply_any(v))
+    nbytes = block_bytes(plans)
     bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    fbytes = factor_bytes((L, U), plans[0].dinv.element_size())
+    factor_bound_ms = 1e3 * fbytes / HBM_BYTES_PER_S
+    capped = {mode: capped_ms_per_iter(H, b, mode, device)
+              for mode in ("block", "level")}
     phase(16, f"solve(fd_convection_diffusion_2d({CD_M}), b, tau=1e-10) "
-              f"n={n}, defaults (GMRES + ILUT, level solves): iters="
+              f"n={n}, defaults (GMRES + ILUT, block solves): iters="
               f"{st.iters} (JAX {CD_ITERS}) reason={st.reason.name} host rel "
               f"resid={resid:.3e} err vs x*={err:.3e}; wall {wall:.3f} s = "
               f"{1e3 * wall / st.iters:.3f} ms/iter (setup included: ILUT "
-              f"factor {factor_s:.3f} s, plans {plans_s:.3f} s); solution on "
-              f"{st.soln.device}; launches {counts} (K1 per solve "
-              f"{counts['K1']}); peak device memory {peak:.3f} GB above "
+              f"factor {factor_s:.3f} s, form with plans {form_s:.3f} s); "
+              f"solution on {st.soln.device}; launches {counts} (K8 by "
+              f"dtype {k8}); peak device memory {peak:.3f} GB above "
               f"the phase's start | {card}")
-    phase(16, f"ILUT factors: L nnz={L.nnz} (n={n}), U nnz={U.nnz}; level "
-              f"plans (chunks, width, ELL slots): L {plan_shape(plans[0])}, "
-              f"U {plan_shape(plans[1])}; one ILUT apply {apply_ms:.3f} ms "
-              f"wall, bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s)")
+    phase(16, f"ILUT factors: L nnz={L.nnz} (n={n}), U nnz={U.nnz}; block "
+              f"plans (blocks, bs, reach): L {block_shape(plans[0])}, U "
+              f"{block_shape(plans[1])}; one ILUT apply {apply_ms:.3f} ms "
+              f"wall, bound {bound_ms:.4f} ms ({nbytes} plan bytes at 3.35 "
+              f"TB/s; {100 * bound_ms / apply_ms:.2f} %), factor bound "
+              f"{factor_bound_ms:.4f} ms ({fbytes} factor bytes; "
+              f"{100 * factor_bound_ms / apply_ms:.2f} %) | level solves of the same factors {level_ms:.3f} ms; capped "
+              f"at {PROFILE_MAXITER} iterations: block "
+              f"{capped['block']:.3f} ms/iter, level {capped['level']:.3f} "
+              f"ms/iter | {card_line()}")
     return dict(H=H, b=b, x_star=x_star, iters=st.iters, K1=counts["K1"],
-                apply_ms=apply_ms, L=L, U=U, plans=plans, wall=wall)
+                K8=k8, apply_ms=apply_ms, level_ms=level_ms, L=L, U=U,
+                wall=wall, capped=capped)
 
 
 def gmres_jacobi_bws(p16, device):
@@ -1685,8 +1767,11 @@ def gmres_jacobi_bws(p16, device):
     = 1e-10.  Returns the K1 and K2 launches."""
     import torch
     import pysolvers_tpu_torch as pt
-    H, b, x_star, L, U = (p16[k] for k in ("H", "b", "x_star", "L", "U"))
+    from pysolvers_tpu_torch.linear import ilu
+    H, b, x_star = (p16[k] for k in ("H", "b", "x_star"))
     n = H.shape[0]
+    # the sweeps factor once at the seed scale (no fill-budget search)
+    L, U = ilu.ilut_factor(H, 1e-3 * ilu._AUTO_SEED, 15.0)
     prec = pt.ILUTPreconditionerType(trisolve_mode="jacobi_bws")
     solver = pt.GMRES(pt.CommonSolverArgs(maxiter=1000, tau=1e-10),
                       precond=prec, flexible=True, device=device).make_solver()
@@ -1723,45 +1808,120 @@ def gmres_jacobi_bws(p16, device):
 
 def pcg_ic(device):
     """Phase 17: solve() with its defaults on fd_laplacian_2d(129) (SPD,
-    n < 20,000): PCG + IC(t) with level solves, K1.  Returns the K1
-    launches."""
+    n < 20,000): PCG + IC(t) with block solves (K8), K1.  Returns the
+    launches, the factor for phase 26 and the block and level applies for
+    phase 15."""
     import torch
     import pysolvers_tpu_torch as pt
-    from pysolvers_tpu_torch.linear import ilu
-    from pysolvers_tpu_torch.ops.trisolve import build_trisolve_plan
     H = pt.problems.fd_laplacian_2d(IC_M)
     n = H.shape[0]
     x_star = np.random.default_rng(2).random(n)
     b = H.matvec(x_star)
     reset_launches()
     t0 = time.perf_counter()
-    st = pt.solve(H, b, tau=1e-10)
+    with no_degrade():
+        st = pt.solve(H, b, tau=1e-10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches()
+    k8 = by_dtype(("K8",))
     resid, err = check_converged("phase 17", H, b, x_star, st, device)
     near("phase 17", st.iters, IC_ITERS)
-    if counts["K1"] != st.iters + 1:
+    # one apply at the start and one per iteration, two K8 launches each
+    if counts["K1"] != st.iters + 1 or counts["K8"] != 2 * (st.iters + 1):
         raise SystemExit(f"phase 17: launches {counts}, {st.iters} iters")
-    Lc = ilu.ict_factor(H, 1e-3 * ilu._AUTO_SEED)
-    plans = (build_trisolve_plan(Lc, lower=True, device=device),
-             build_trisolve_plan(Lc.transpose(), lower=False, device=device))
-    prec = pt.ICPreconditionerType().form(H, device=device)
+    ic = pt.ICPreconditionerType()
+    Lc = ic._factor(H, device)
+    with no_degrade():
+        prec = ic.form(H, device=device)
     v = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
                         device=device)
-    apply_ms = wall_ms(lambda: prec.apply_any(v))
+    apply_ms = wall_ms(lambda: prec.apply_any(v), calls=20)
+    level = pt.ICPreconditionerType(trisolve_mode="level").form(
+        H, device=device)
+    level_ms = wall_ms(lambda: level.apply_any(v))
+    plans = prec.state
     phase(17, f"solve(fd_laplacian_2d({IC_M}), b, tau=1e-10) n={n}, "
-              f"defaults (PCG + IC(t)): iters={st.iters} (JAX {IC_ITERS}) "
-              f"reason={st.reason.name} host rel resid={resid:.3e} err vs "
-              f"x*={err:.3e}; wall {wall:.3f} s = "
+              f"defaults (PCG + IC(t), block solves): iters={st.iters} (JAX "
+              f"{IC_ITERS}) reason={st.reason.name} host rel resid="
+              f"{resid:.3e} err vs x*={err:.3e}; wall {wall:.3f} s = "
               f"{1e3 * wall / st.iters:.3f} ms/iter (setup included); IC "
-              f"factor nnz={Lc.nnz} ({Lc.nnz / n:.2f} per row), plans L "
-              f"{plan_shape(plans[0])} Lt {plan_shape(plans[1])}, one apply "
-              f"{apply_ms:.3f} ms wall, bound "
-              f"{1e3 * trisolve_bytes(plans) / HBM_BYTES_PER_S:.4f} ms; "
-              f"launches {counts}; solution on {st.soln.device} | "
-              f"{card_line()}")
-    return counts["K1"]
+              f"factor nnz={Lc.nnz} ({Lc.nnz / n:.2f} per row), block plans "
+              f"L {block_shape(plans[0])} Lt {block_shape(plans[1])}, one "
+              f"apply {apply_ms:.3f} ms wall (level solves {level_ms:.3f} "
+              f"ms), bound "
+              f"{1e3 * block_bytes(plans) / HBM_BYTES_PER_S:.4f} ms (plan "
+              f"bytes), factor bound "
+              f"{1e3 * factor_bytes((Lc, Lc), 8) / HBM_BYTES_PER_S:.4f} ms; "
+              f"launches {counts} (K8 by dtype {k8}); solution on "
+              f"{st.soln.device} | {card_line()}")
+    return dict(K1=counts["K1"], K8=k8, Lc=Lc, apply_ms=apply_ms,
+                level_ms=level_ms, block=prec, level=level, v=v)
+
+
+def check_k8(p16, p17, device):
+    """Phase 26: K8 against its twin on phase 16's ILUT factors and phase
+    17's IC factor and its transpose, f32 and f64: the error, CUDA-event
+    times of both, the bytes bound and the level-scheduled solve of the
+    same factor.  Returns the kernels-record numbers at phase 16's U in
+    f64, the path's widest solve."""
+    import torch
+    from pysolvers_tpu_torch.ops import block_trisolve as bt
+    from pysolvers_tpu_torch.ops import trisolve as lt
+    card = card_line()
+    rng = np.random.default_rng(4)
+    Lc = p17["Lc"]
+    record = None
+    for name, T, lower, unit in (
+            ("phase 16 ILUT L", p16["L"], True, True),
+            ("phase 16 ILUT U", p16["U"], False, False),
+            ("phase 17 IC L", Lc, True, False),
+            ("phase 17 IC Lt", Lc.transpose(), False, False)):
+        bh = rng.standard_normal(T.shape[0])
+        for dts in ("float32", "float64"):
+            plan = bt.build_block_trisolve_plan(T, lower, unit, dtype=dts,
+                                                device=device)
+            b = torch.as_tensor(bh, dtype=plan.dtype, device=device)
+            x = bt.block_trisolve(plan, b)
+            ref = bt.block_trisolve_torch(plan, b)
+            torch.cuda.synchronize()
+            abs_err = float((x - ref).abs().max())
+            rel = abs_err / float(ref.abs().max())
+            ok = bool(torch.isfinite(x).all()) and rel <= K8_TOL[dts]
+            ms, plain_ms, _ = time_pair(lambda: bt.block_trisolve(plan, b),
+                                        lambda: bt.block_trisolve_torch(
+                                            plan, b), runs=7, calls=5)
+            lp = lt.build_trisolve_plan(T, lower, unit, dtype=dts,
+                                        device=device)
+            level_ms = wall_ms(lambda: lt.trisolve(lp, b), calls=3)
+            size = plan.dinv.element_size()
+            nbytes = ((plan.s_hat.numel() + plan.dinv.numel()) * size
+                      + 2 * plan.n * size)
+            bnd = bound(nbytes, 2 * plan.nb * plan.bs * (plan.p + 1)
+                        * plan.bs, dts)
+            # what the solve itself needs: the factor's nonzeros, not the
+            # plan's dense blocks
+            fbnd = bound(factor_bytes((T,), size), 2 * T.nnz, dts)
+            phase(26, f"K8 {name} {dts} n={plan.n} nnz={T.nnz} (blocks, "
+                      f"bs, reach) {block_shape(plan)} rel_err={rel:.3e} "
+                      f"(tol {K8_TOL[dts]:g}) K8 {ms:.4f} ms "
+                      f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
+                      f"{bnd['bound_ms']:.4f} ms by the plan's bytes "
+                      f"({100 * bnd['bound_ms'] / ms:.2f} %), "
+                      f"{fbnd['bound_ms']:.4f} ms by the factor's "
+                      f"({100 * fbnd['bound_ms'] / ms:.3f} %) | twin "
+                      f"{plain_ms:.4f} ms | level-scheduled solve "
+                      f"{level_ms:.4f} ms wall | library: none | {card}")
+            if not ok:
+                raise SystemExit(f"K8 disagrees with its twin on {name} "
+                                 f"{dts}: rel {rel:.3e} > {K8_TOL[dts]:g}")
+            if name == "phase 16 ILUT U" and dts == "float64":
+                record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                              level_ms=level_ms, **bnd,
+                              factor_bound_ms=fbnd["bound_ms"],
+                              library_ms=None, library_call=None)
+            del plan, lp, x, ref
+    return record
 
 
 def gmres_amg(device, pcg_ms, m=1023):
@@ -1858,8 +2018,9 @@ def direct(device):
 
 def block_gmres_ic(device, m=BLOCK_GMRES_M):
     """Phase 20: the block lane's GMRES (K4 for the operator, block-Jacobi
-    on the right) and its CG with the scalar IC(t) of the host CSR view.
-    Returns the K4 launches of the GMRES solve."""
+    on the right) and its CG with the scalar IC(t) of the host CSR view
+    (factored in f32, its block plans in f64: K8 f64).  Returns the K4 launches of the GMRES solve and
+    the K8 launches by dtype of the IC solve."""
     import torch
     import pysolvers_tpu_torch as pt
     H = pt.fd_vector_laplacian_2d(m, b=BLOCK_B, coupling=BLOCK_COUPLING)
@@ -1872,10 +2033,12 @@ def block_gmres_ic(device, m=BLOCK_GMRES_M):
         base = peak_reset()
         reset_launches()
         t0 = time.perf_counter()
-        st = pt.solve(A, b, tau=1e-10, method=method, precond=precond)
+        with no_degrade():
+            st = pt.solve(A, b, tau=1e-10, method=method, precond=precond)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches()
+        k8 = by_dtype(("K8",))
         peak = peak_above(base)
         tag = f"phase 20 method={method} precond={precond}"
         resid, err = check_converged(tag, H, b, x_star, st, device,
@@ -1885,25 +2048,30 @@ def block_gmres_ic(device, m=BLOCK_GMRES_M):
         # residual; CG: one per iteration and one at the start
         if counts["K4"] != st.iters + (2 if method == "gmres" else 1):
             raise SystemExit(f"{tag}: launches {counts}, {st.iters} iters")
+        # the IC: one apply at the start and one per iteration, two f64
+        # K8 launches each
+        if precond == "ic" and k8["K8 f64"] != 2 * (st.iters + 1):
+            raise SystemExit(f"{tag}: K8 launches {k8}, {st.iters} iters")
         phase(20, f"solve(BdiaMatrix fd_vector_laplacian_2d({m}, b="
                   f"{BLOCK_B}), b, tau=1e-10, method={method!r}, precond="
                   f"{precond!r}) n={H.shape[0]}: iters={st.iters} (JAX {ref})"
                   f" reason={st.reason.name} host rel resid={resid:.3e} err "
                   f"vs x*={err:.3e}; wall {wall:.3f} s = "
                   f"{1e3 * wall / st.iters:.3f} ms/iter (setup included); "
-                  f"launches {counts}; solution on {st.soln.device}; peak "
-                  f"device memory {peak:.3f} GB above the phase's start | "
-                  f"{card_line()}")
-        out[method] = counts["K4"]
-    return out["gmres"]
+                  f"launches {counts} (K8 by dtype {k8}); solution on "
+                  f"{st.soln.device}; peak device memory {peak:.3f} GB "
+                  f"above the phase's start | {card_line()}")
+        out[method] = counts["K4"], k8
+    return out["gmres"][0], out["auto"][1]
 
 
 def profile_gmres_ilut(p16, device):
     """Phase 15, second part: phase 16's solve capped at PROFILE_MAXITER
-    iterations (preconditioner formed beforehand) under torch.profiler:
-    busy share, device ops per iteration, and the shares of K1, of MGS
-    (the dot and addcmul kernels only it launches) and of the ILUT applies
-    (the same applies profiled alone)."""
+    iterations (preconditioner formed beforehand: block plans, K8) under
+    torch.profiler: busy share, device ops per iteration, and the shares
+    of K1, of K8 (its two stages), of MGS (the dot and addcmul kernels
+    only it launches) and of the ILUT applies (the same applies profiled
+    alone)."""
     import torch
     import pysolvers_tpu_torch as pt
     H, b = p16["H"], p16["b"]
@@ -1933,6 +2101,8 @@ def profile_gmres_ilut(p16, device):
     apply_wall, apply_dev_s, apply_rows = profile_call(
         lambda: [prec.apply_any(v) for _ in range(applies)])
     k1_us = sum(us for us, k, _ in rows if "dia_spmv" in k)
+    k8 = ("diag_block_kernel", "recurrence_kernel")
+    k8_us = sum(us for us, k, _ in rows if any(t in k for t in k8))
     mgs = ("dot_kernel", "reduce_1Block", "addcmul")
     mgs_us = sum(us for us, k, _ in rows if any(t in k for t in mgs))
     ops = sum(c for _, _, c in rows)
@@ -1948,7 +2118,8 @@ def profile_gmres_ilut(p16, device):
               f"profiled wall {1e3 * wall:.3f} ms); {ops / iters:.1f} device "
               f"ops per "
               f"iteration; K1 {k1_us / 1e3:.3f} ms = "
-              f"{100 * k1_us / 1e6 / dev_s:.1f} % of device time; MGS "
+              f"{100 * k1_us / 1e6 / dev_s:.1f} % of device time; K8 "
+              f"{k8_us / 1e3:.3f} ms = {100 * k8_us / 1e6 / dev_s:.1f} %; MGS "
               f"(dot, addcmul) {mgs_us / 1e3:.3f} ms = "
               f"{100 * mgs_us / 1e6 / dev_s:.1f} %; top device ops: {top}")
     phase(15, f"the {applies} ILUT applies alone: wall "
@@ -1959,6 +2130,25 @@ def profile_gmres_ilut(p16, device):
               f"{100 * apply_dev_s / dev_s:.1f} % of the solve's device time,"
               f" {sum(c for _, _, c in apply_rows) / applies:.1f} device ops "
               f"per apply | {card_line()}")
+
+
+def profile_ic(p17):
+    """Phase 15, third part: phase 17's IC(t) apply under torch.profiler,
+    by block solves (K8) and by level-scheduled solves: device time and
+    device ops per apply, over five applies each."""
+    for mode, ms in (("block", p17["apply_ms"]), ("level", p17["level_ms"])):
+        prec, v = p17[mode], p17["v"]
+        wall, dev_s, rows = profile_call(
+            lambda: [prec.apply_any(v) for _ in range(5)])
+        if not rows:
+            phase(15, f"profiled IC(t) apply ({mode}): the profiler saw no "
+                      "device time (not measured)")
+            continue
+        phase(15, f"IC(t) apply by {mode} solves (phase 17's factor, n="
+                  f"{v.shape[0]}): device {1e3 * dev_s / 5:.4f} ms per "
+                  f"apply, {sum(c for _, _, c in rows) / 5:.1f} device ops "
+                  f"per apply; wall {1e3 * wall / 5:.3f} ms profiled, "
+                  f"{ms:.3f} ms unprofiled | {card_line()}")
 
 
 class HostReads:
@@ -2373,20 +2563,22 @@ def mixed_grid(device, p13, m=GRID_M, num_levels=GRID_LEVELS):
 def mixed_short(device):
     """Phase 25: solve() at mixed precision on fd_convection_diffusion_2d(63)
     with no device: GMRES + ILUT through the mixed route (the f64 FGMRES
-    inner with the f32 ILUT apply), gated on the JAX package's count; the
-    native solve of the same system beside it.  Returns K1's launches."""
+    inner with the f32 ILUT apply, f32 block plans on K8), gated on the
+    JAX package's block-mode count; the native solve of the same system
+    beside it.  Returns K1's and K8's launches by dtype."""
     import pysolvers_tpu_torch as pt
     H = pt.fd_convection_diffusion_2d(CD_MIXED_M)
     x_star = np.random.default_rng(2).random(H.shape[0])
     b = H.matvec(x_star)
     reset_launches()
-    with HostReads() as reads:
+    with HostReads() as reads, no_degrade():
         st, wall = timed(lambda: pt.solve(H, b, tau=1e-10,
                                           precision="mixed"))
-    launches = by_dtype(("K1",))
+    launches = by_dtype(("K1", "K8"))
     resid, err = check_converged("phase 25", H, b, x_star, st, device)
     near("phase 25", st.iters, CD_MIXED_ITERS)
-    if launches["K1 f64"] <= 0 or st.soln.dtype.itemsize != 8:
+    if (launches["K1 f64"] <= 0 or launches["K8 f32"] <= 0
+            or launches["K8 f64"] or st.soln.dtype.itemsize != 8):
         raise SystemExit(f"phase 25: launches {launches}, {st.soln.dtype}")
     native, native_s = timed(lambda: pt.solve(H, b, tau=1e-10))
     check_converged("phase 25 native", H, b, x_star, native, device)
@@ -2552,10 +2744,12 @@ def main():
     oo_gmg("cuda")
     p16 = gmres_ilut("cuda")
     p16b = gmres_jacobi_bws(p16, "cuda")
-    k1_p17 = pcg_ic("cuda")
+    p17 = pcg_ic("cuda")
+    rec_k8 = check_k8(p16, p17, "cuda")
+    del p17["Lc"]
     p18 = gmres_amg("cuda", p4["ms_per_iter"])
     direct("cuda")
-    k4_p20 = block_gmres_ic("cuda")
+    k4_p20, k8_p20 = block_gmres_ic("cuda")
     p21 = mixed_banded("cuda", p4, p5, p18)
     p22 = mixed_unstructured("cuda", path, num_levels=num_levels)
     p23_single, p23_multi = mixed_block("cuda", p10, p11)
@@ -2565,8 +2759,9 @@ def main():
     p25 = mixed_short("cuda")
     profile_unstructured(path, fine32, rec_bws)
     del path, fine32
-    k1_p16 = p16["K1"]
+    k1_p16, k8_p16 = p16["K1"], p16["K8"]
     profile_gmres_ilut(p16, "cuda")
+    profile_ic(p17)
     del p16
 
     src = "pysolvers_tpu_torch/csrc/"
@@ -2575,7 +2770,7 @@ def main():
              replaces="pysolvers_tpu/ops/spmv.py:197",
              launches=k1_launches, **rec_k1,
              path_launches={"phase 16": k1_p16, "phase 16b": p16b["K1"],
-                            "phase 17": k1_p17,
+                            "phase 17": p17["K1"],
                             "phase 18 mgs": p18["mgs"]["K1"],
                             "phase 18 cgs2": p18["cgs2"]["K1"],
                             **mixed_path(p21, "K1"),
@@ -2611,6 +2806,16 @@ def main():
              replaces="pysolvers_tpu/ops/grid_spmv.py:154",
              launches=p13_counts["K6"], **rec_k6,
              path_launches=mixed_path({"phase 24": p24}, "K6")),
+        # K8's own main path is phase 16 (two launches per ILUT apply); the
+        # other paths that run it by dtype
+        dict(name="block_trisolve", route="cuda",
+             source=src + "block_trisolve.cu",
+             replaces="pysolvers_tpu/ops/block_trisolve.py:349",
+             launches=k8_p16["K8 f64"], **rec_k8,
+             path_launches=mixed_path({"phase 16": k8_p16,
+                                       "phase 17": p17["K8"],
+                                       "phase 20 ic": k8_p20,
+                                       "phase 25": p25}, "K8")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,11 @@ JAX package calls, so the factors are bit-equal), with the pure-Python
 fallback copied.  ``ict_factor`` scales the no-pivot U into L = (D^{-1/2}
 U)ᵀ.  The apply runs on the preconditioner's device, by ``trisolve_mode``:
 
+* ``"block"`` — exact block-banded solves (``ops/block_trisolve.py``:
+  kernel K8 on CUDA, one launch per factor), the plans built in the
+  factorization's dtype (f64 natively, f32 on the mixed route) or in the
+  ``apply_dtype`` that ``form()`` is given (the block lane's IC factors in
+  f32 and applies to f64 vectors in f64, as the level solves promote);
 * ``"level"`` — exact: two level-scheduled triangular solves
   (``ops/trisolve.py::trisolve``);
 * ``"jacobi"`` — ``sweeps`` Jacobi sweeps per factor
@@ -20,24 +25,32 @@ U)ᵀ.  The apply runs on the preconditioner's device, by ``trisolve_mode``:
   on the FD stencils, whose multipliers all fall under the drop threshold)
   is solved exactly by its diagonal with no product, where the JAX package
   fails to pack it and degrades both factors;
-* ``"auto"`` — ``"level"``: the JAX rule for every backend but a TPU, so
-  the factor is made once at the seed drop scale (``_resolve_drop_scale``);
-* ``"block"`` — raises NotImplementedError naming its ROADMAP item (the
-  port of ``ops/block_trisolve.py``); it never degrades silently.
+* ``"auto"`` — ``"block"`` on a CUDA device, as the JAX package's "auto"
+  on its accelerator, and ``"level"`` on the CPU, as there.
+
+A factor that does not fit the block path (block reach above ``max_p`` =
+4, or dense blocks above 2 GiB) degrades with a warning, as in the JAX
+package: "auto" to "jacobi_bws" (whose card path raises where a factor
+does not pack); an explicit "block" to "level" on the CPU, and on the card
+it raises, naming the modes to pass, rather than run torch's level loop
+unasked.  The fill-budget search of ``drop_scale="auto"``
+(``_resolve_drop_scale``) runs exactly where the resolved mode is "block",
+whose cost grows with the factor's bandwidth and not its fill.
 
 Not ported: ``prep()`` and the one-dispatch fused setup (``ops/fuse.py``
-is on the do-not-port list), ``_block_plan_pair``, ``_block_pair_apply``,
-``_degrade_from_block``, and the fill-budget search of "auto" with its
-``_SCALE_CACHE`` (only the block mode uses them).
+is on the do-not-port list), and with them the ``_factor_cache`` that
+``prep()`` left for ``form()``.
 """
 from __future__ import annotations
 
 import bisect
+import warnings
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..ops.block_trisolve import block_trisolve, build_block_trisolve_plan_pair
 from ..ops.bws_spmv import bws_spmv
 from ..ops.trisolve import build_trisolve_plan, trisolve, trisolve_jacobi
 from ..sparse.bws import BwsMatrix
@@ -48,17 +61,53 @@ from .preconditioner import Preconditioner, PreconditionerType
 TRISOLVE_MODES = ("auto", "level", "jacobi", "jacobi_bws", "block")
 
 
-def _resolve_trisolve_mode(mode: str) -> str:
-    """"auto" is "level" (the JAX package takes "block" on a TPU only);
-    "block" raises, unknown names too."""
+def _resolve_trisolve_mode(mode: str, device=None) -> str:
+    """"auto" is "block" on a CUDA device and "level" elsewhere (the
+    device as ``resolve_device`` reads it); unknown names raise."""
     if mode not in TRISOLVE_MODES:
         raise ValueError(f"unknown trisolve_mode {mode!r}; expected one of "
                          f"{TRISOLVE_MODES}")
-    if mode == "block":
-        raise NotImplementedError(
-            "trisolve_mode='block' is not ported yet (ROADMAP slice 8's "
-            "rest: ops/block_trisolve.py)")
-    return "level" if mode == "auto" else mode
+    if mode != "auto":
+        return mode
+    return "block" if resolve_device(device).type == "cuda" else "level"
+
+
+def _block_plan_pair(T_lo: HostCSR, T_up: HostCSR, unit_lo: bool,
+                     unit_up: bool, dtype, device):
+    """Both factors' block plans on ``device``, or None if either factor
+    does not qualify (found on the host, before anything is uploaded)."""
+    try:
+        return build_block_trisolve_plan_pair(T_lo, T_up, unit_lo=unit_lo,
+                                              unit_up=unit_up, dtype=dtype,
+                                              device=device)
+    except ValueError:
+        return None
+
+
+def _degrade_from_block(requested_mode: str, what: str, device) -> str:
+    """The fallback when the exact block path does not apply: "auto" keeps
+    the fast approximate K2 sweeps, with a warning; an explicit "block"
+    asked for exactness and gets the exact level-scheduled solves on the
+    CPU, with a warning, and a ValueError on the card."""
+    reason = (f"{what}: factor not banded enough for the block trisolve "
+              "(block reach above 4, or dense blocks above 2 GiB)")
+    if requested_mode == "block":
+        if torch.device(device).type != "cpu":
+            raise ValueError(f"{reason}; pass trisolve_mode='level' (exact) "
+                             "or 'jacobi_bws' (approximate, K2 sweeps)")
+        warnings.warn(f"{reason}; using exact level-scheduled solves",
+                      stacklevel=3)
+        return "level"
+    warnings.warn(f"{reason}; degrading to approximate Jacobi/BWS sweeps "
+                  "(pass trisolve_mode='level' for exact)", stacklevel=3)
+    return "jacobi_bws"
+
+
+def _block_pair_apply(state, v):
+    """M^{-1} v by the two exact block solves of the (lower, upper) plan
+    pair."""
+    plan_lo, plan_up = state
+    return block_trisolve(plan_up, block_trisolve(plan_lo, v))
 
 
 def _bws_sweep_solver(T: HostCSR, unit_diag: bool, sweeps: int, dtype,
@@ -236,17 +285,71 @@ def _check_fill(A: HostCSR, L: HostCSR, U: HostCSR, fill_factor: float,
 # ---------------------------------------------------------------------------
 # Drop scale
 # ---------------------------------------------------------------------------
-_AUTO_SEED = 0.1
+#
+# Saad's relative threshold drops more than SuperLU's rule at the same
+# nominal drop_tol.  "auto" scales the threshold so that the factor uses a
+# set fraction of the fill budget the caller granted (fill_factor·nnz(A)),
+# where fill costs nothing: the block apply's cost follows the factor's
+# bandwidth, not its nonzeros.  Everywhere else it factors once at the seed.
+_AUTO_SEED = 0.1          # search seed
+# target total factor nnz as a fraction of fill_factor·nnz(A)
+_AUTO_BUDGET_FRAC = 0.52
+_SCALE_CACHE: dict = {}   # (kind, drop_tol, fill, shape, nnz) -> scale;
+                          # at most 65 entries, the oldest dropped first
 
 
-def _resolve_drop_scale(drop_tol: float, drop_scale) -> float:
-    """The effective drop threshold: drop_tol·drop_scale, and for "auto"
-    drop_tol·_AUTO_SEED.  That is the JAX package's "auto" wherever the
-    apply's cost grows with the factor's fill (every mode here).  Its
-    fill-budget search serves only the TPU block trisolve and is ported
-    with that mode."""
-    return drop_tol * (_AUTO_SEED if drop_scale == "auto"
-                       else float(drop_scale))
+def _resolve_drop_scale(kind: str, A: HostCSR, drop_tol: float,
+                        fill_factor: float, drop_scale, factor_fn,
+                        fill_is_free: bool = True):
+    """Factor at the resolved drop threshold; 1-4 factorizations cold.
+
+    ``factor_fn(eff_drop) -> (result, total_nnz)``.  A float
+    ``drop_scale`` factors once at drop_tol·drop_scale; "auto" without
+    ``fill_is_free`` once at drop_tol·_AUTO_SEED.  "auto" with it factors
+    at the seed, and while the factor holds under 80 % of the target
+    (_AUTO_BUDGET_FRAC·fill_factor·nnz(A)) takes at most three more steps
+    along the matrix's own measured fill slope alpha = d log nnz / d
+    log(1/drop) (the first probe a fixed 4x deeper; each step at most 64x;
+    a flat slope stops), as the JAX package does.  The resolved scale is
+    cached on the matrix signature, so a warm re-setup factors once.
+    """
+    if drop_scale != "auto":
+        res, _ = factor_fn(drop_tol * float(drop_scale))
+        return res
+    if not fill_is_free:
+        res, _ = factor_fn(drop_tol * _AUTO_SEED)
+        return res
+    key = (kind, float(drop_tol), float(fill_factor), A.shape, A.nnz)
+    s = _SCALE_CACHE.get(key)
+    if s is not None:
+        res, _ = factor_fn(drop_tol * s)
+        return res
+    target = _AUTO_BUDGET_FRAC * fill_factor * A.nnz
+    s = _AUTO_SEED
+    res, total = factor_fn(drop_tol * s)
+    s_prev, total_prev = None, None
+    for _ in range(3):
+        if total >= 0.8 * target or s <= _AUTO_SEED / 4096.0:
+            break
+        if total_prev is None or total <= total_prev or s >= s_prev:
+            s_next = s / 4.0
+        else:
+            alpha = float(np.log(total / total_prev)
+                          / np.log(s_prev / s))
+            alpha = min(max(alpha, 0.05), 4.0)       # sane slope window
+            s_next = max(s * (total / target) ** (1.0 / alpha),
+                         s / 64.0)
+        res_n, total_n = factor_fn(drop_tol * s_next)
+        if total_n <= total:
+            # flat slope: the factor already holds every entry the rule
+            # can keep
+            break
+        s_prev, total_prev = s, total
+        s, total, res = s_next, total_n, res_n
+    if len(_SCALE_CACHE) > 64:
+        _SCALE_CACHE.pop(next(iter(_SCALE_CACHE)))
+    _SCALE_CACHE[key] = s
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +358,8 @@ def _resolve_drop_scale(drop_tol: float, drop_scale) -> float:
 
 def _factor_apply(lo: HostCSR, up: HostCSR, unit_lo: bool, mode: str,
                   sweeps: int, dtype, device):
-    """v -> up⁻¹(lo⁻¹ v) on ``device`` by ``mode`` (resolved)."""
+    """v -> up⁻¹(lo⁻¹ v) on ``device`` by ``mode`` (resolved; "block" is
+    the caller's)."""
     if mode == "jacobi_bws":
         try:
             sl = _bws_sweep_solver(lo, unit_lo, sweeps, np.float32, device,
@@ -280,7 +384,62 @@ def _factor_apply(lo: HostCSR, up: HostCSR, unit_lo: bool, mode: str,
     return lambda v: trisolve(plan_up, trisolve(plan_lo, v))
 
 
-class ILUTPreconditionerType(PreconditionerType):
+class _FactorPreconditionerType(PreconditionerType):
+    """What ILU(t) and IC(t) share: the arguments, the drop scale and the
+    apply by mode.  Subclasses give ``kind``, ``_factor_nnz`` (the factor
+    and its total nnz at a drop threshold) and ``_pair`` (lower factor,
+    upper factor, unit lower diagonal)."""
+
+    kind = ""
+    name = ""
+
+    def __init__(self, drop_tol: float = 1e-3, fill_factor: float = 15.0,
+                 side: str = "right", trisolve_mode: str = "auto",
+                 sweeps: int = 10, drop_scale="auto"):
+        _resolve_trisolve_mode(trisolve_mode, "cpu")
+        self.drop_tol = drop_tol
+        self.fill_factor = fill_factor
+        self.drop_scale = drop_scale
+        self.side = side
+        self.trisolve_mode = trisolve_mode
+        self.sweeps = sweeps
+
+    def _factor(self, A_host: HostCSR, device=None):
+        """The factor(s) at the resolved drop scale; the fill-budget
+        search runs where the mode resolves to "block" on ``device``."""
+        return _resolve_drop_scale(
+            self.kind, A_host, self.drop_tol, self.fill_factor,
+            self.drop_scale, lambda eff: self._factor_nnz(A_host, eff),
+            fill_is_free=_resolve_trisolve_mode(
+                self.trisolve_mode, device) == "block")
+
+    def form(self, A_host: HostCSR, A_dev=None, device=None,
+             apply_dtype=None) -> Preconditioner:
+        """``apply_dtype``: the block plans' dtype where it is not the
+        factor's (the factor's values are exact in a wider one)."""
+        device = resolve_device(device)
+        f = self._factor(A_host, device)
+        lo, up, unit_lo = self._pair(f)
+        _check_fill(A_host, lo, up, self.fill_factor, self.name)
+        dtype = A_host.data.dtype
+        mode = _resolve_trisolve_mode(self.trisolve_mode, device)
+        if mode == "block":
+            # the plans run in the solve's dtype: an f32 plan inside a
+            # native f64 solve makes the apply inexact at ~eps32, which
+            # non-flexible GMRES reports as a true-residual mismatch; the
+            # f32 route is the mixed one, which forms on an f32 host matrix
+            pair = _block_plan_pair(lo, up, unit_lo, False,
+                                    apply_dtype or dtype, device)
+            if pair is not None:
+                prec = self._wrap(lambda v: _block_pair_apply(pair, v))
+                prec.state = pair
+                return prec
+            mode = _degrade_from_block(self.trisolve_mode, self.name, device)
+        return self._wrap(_factor_apply(lo, up, unit_lo, mode, self.sweeps,
+                                        dtype, device))
+
+
+class ILUTPreconditionerType(_FactorPreconditionerType):
     """ILU(t) preconditioner; reference Left/RightILUT
     (ILUTPreconditioner.py:10-31, defaults drop_tol=1e-3, fill_factor=15).
 
@@ -290,55 +449,27 @@ class ILUTPreconditionerType(PreconditionerType):
     modes.
     """
 
-    def __init__(self, drop_tol: float = 1e-3, fill_factor: float = 15.0,
-                 side: str = "right", trisolve_mode: str = "auto",
-                 sweeps: int = 10, drop_scale="auto"):
-        _resolve_trisolve_mode(trisolve_mode)
-        self.drop_tol = drop_tol
-        self.fill_factor = fill_factor
-        self.drop_scale = drop_scale
-        self.side = side
-        self.trisolve_mode = trisolve_mode
-        self.sweeps = sweeps
+    kind, name = "ilut", "ILUT"
 
-    def _factor(self, A_host: HostCSR):
-        return ilut_factor(A_host,
-                           _resolve_drop_scale(self.drop_tol, self.drop_scale),
-                           self.fill_factor)
+    def _factor_nnz(self, A_host, eff):
+        L, U = ilut_factor(A_host, eff, self.fill_factor)
+        return (L, U), L.nnz + U.nnz
 
-    def form(self, A_host: HostCSR, A_dev=None, device=None) -> Preconditioner:
-        L, U = self._factor(A_host)
-        _check_fill(A_host, L, U, self.fill_factor, "ILUT")
-        return self._wrap(_factor_apply(
-            L, U, True, _resolve_trisolve_mode(self.trisolve_mode),
-            self.sweeps, A_host.data.dtype, resolve_device(device)))
+    def _pair(self, f):
+        return f[0], f[1], True
 
 
-class ICPreconditionerType(PreconditionerType):
+class ICPreconditionerType(_FactorPreconditionerType):
     """IC(t) preconditioner (SPD); reference RightIC
     (ICPreconditioner.py:20-29): apply = L⁻ᵀ (L⁻¹ v).  Arguments as for
-    ILUTPreconditionerType."""
+    ILUTPreconditionerType; the block mode solves the generic (L, Lᵀ)
+    pair."""
 
-    def __init__(self, drop_tol: float = 1e-3, fill_factor: float = 15.0,
-                 side: str = "right", trisolve_mode: str = "auto",
-                 sweeps: int = 10, drop_scale="auto"):
-        _resolve_trisolve_mode(trisolve_mode)
-        self.drop_tol = drop_tol
-        self.fill_factor = fill_factor
-        self.drop_scale = drop_scale
-        self.side = side
-        self.trisolve_mode = trisolve_mode
-        self.sweeps = sweeps
+    kind, name = "ic", "IC"
 
-    def _factor(self, A_host: HostCSR):
-        return ict_factor(A_host,
-                          _resolve_drop_scale(self.drop_tol, self.drop_scale),
-                          self.fill_factor)
+    def _factor_nnz(self, A_host, eff):
+        Lc = ict_factor(A_host, eff, self.fill_factor)
+        return Lc, 2 * Lc.nnz
 
-    def form(self, A_host: HostCSR, A_dev=None, device=None) -> Preconditioner:
-        Lc = self._factor(A_host)
-        _check_fill(A_host, Lc, Lc, self.fill_factor, "IC")
-        return self._wrap(_factor_apply(
-            Lc, Lc.transpose(), False,
-            _resolve_trisolve_mode(self.trisolve_mode), self.sweeps,
-            A_host.data.dtype, resolve_device(device)))
+    def _pair(self, Lc):
+        return Lc, Lc.transpose(), False

@@ -56,7 +56,7 @@ from .linear.refine import ir_solve_dd, ir_solve_multi
 from .linear.preconditioner import JacobiPreconditionerType, Preconditioner
 from .ops.spmv import bdia_spmm_rows, bdia_spmv
 from .sparse.bdia import BdiaMatrix, detect_block_size
-from .sparse.device import same_device
+from .sparse.device import numpy_dtype, same_device
 from .sparse.host import HostCSR
 
 
@@ -220,11 +220,14 @@ def _bdia_cached(A: BdiaMatrix, key, make):
 def _bdia_ic_form(A: BdiaMatrix) -> Preconditioner:
     """Scalar IC(t) of A's node-major host CSR view, factored in f32 as in
     the JAX package (``solve.py:242-255``), applied to a planar vector
-    through node-major reorders (in the vector's dtype: the level solves
-    promote)."""
+    through node-major reorders in A's dtype: the level solves promote, and
+    the block plans ("auto" on the card) are built in it from the f32
+    factor.  (The JAX package's f32 block plans make the apply inexact,
+    which non-flexible GMRES reports as a true-residual mismatch.)"""
     H = A.to_host_csr()
     H32 = HostCSR(H.indptr, H.indices, H.data.astype(np.float32), H.shape)
-    inner = ICPreconditionerType().form(H32, device=A.device)
+    inner = ICPreconditionerType().form(H32, device=A.device,
+                                        apply_dtype=numpy_dtype(A.dtype))
 
     def apply(v):
         return A.to_planar(inner.apply_any(A.from_planar(v)).to(v.dtype))

@@ -1,4 +1,4 @@
-"""Kernels K1, K2/K3, K4/K5, K6 and K7 and the port's main paths (GMRES,
+"""Kernels K1, K2/K3, K4/K5, K6, K7 and K8 and the port's main paths (GMRES,
 ILU(t)/IC(t), the direct solve and the mixed-precision routes among
 them) on a CUDA device,
 against the plain twins and the CPU path.  Every test here needs the card and skips without
@@ -18,7 +18,11 @@ their twins: K1's tolerances — K4 adds the (d, q) terms in the twin's
 order, K5 in (q, d) order (a reordering of D·b terms, a few ulps of the
 partial sums), both with FMAs.  K6 against its twin: K1's tolerances, for
 the same reason (both add the D terms in pair order).  K7 is a pure
-gather and must be bit-exact.
+gather and must be bit-exact.  K8 (the block-banded triangular solve)
+against its twin, relative to max|x|: 1e-5 in f32 and 1e-12 in f64 — the
+kernel sums each row's dot products by warp shuffles, the twin by torch's
+matrix-vector products, and the recurrence carries each block's rounding
+into the next (the factors here are well conditioned).
 """
 import numpy as np
 import pytest
@@ -29,6 +33,8 @@ import pysolvers_tpu_torch.linear.amg as tamg
 from pysolvers_tpu_torch import convert
 import dataclasses
 
+from pysolvers_tpu_torch.linear import ilu as tilu
+from pysolvers_tpu_torch.ops import block_trisolve as tbt
 from pysolvers_tpu_torch.ops import bws_spmv as tbws
 from pysolvers_tpu_torch.ops import probe, spmv
 from pysolvers_tpu_torch.sparse.bws import BwsMatrix
@@ -458,6 +464,11 @@ def _sync_free_calls(name, cuda):
         V = torch.randn(20, A.n_cols, dtype=torch.float64, device=cuda)
         return (lambda: spmv.bdia_spmm_rows(A, V),
                 (spmv, "bdia_spmm_launches"), 2)
+    if name == "block_trisolve":
+        plan = _k8_plan("convdiff63_U_256", torch.float64, cuda)
+        b = torch.randn(plan.n, dtype=torch.float64, device=cuda)
+        return (lambda: tbt.block_trisolve(plan, b),
+                (tbt, "block_trisolve_launches"), 1)
     if name == "grid_dia_spmv":
         A = _grid("random_300x1100_D9", torch.float64, cuda)
         x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
@@ -471,7 +482,8 @@ def _sync_free_calls(name, cuda):
 
 @pytest.mark.parametrize("name", [
     "dia_spmv", "bws_spmv_with_classes", "bws_spmv_without_classes",
-    "bws_spmv_by_class", "bdia_spmv", "bdia_spmm_rows", "grid_dia_spmv", "lane_gather_probe"])
+    "bws_spmv_by_class", "bdia_spmv", "bdia_spmm_rows", "grid_dia_spmv", "lane_gather_probe",
+    "block_trisolve"])
 def test_wrapper_never_syncs(cuda, name):
     """A kernel wrapper launches and returns: no host round trip, so a
     solver loop of products never waits on the card (torch raises on any
@@ -688,25 +700,41 @@ def _same_solve(st, ref, H, b, iters=1):
     assert np.linalg.norm(b - H.matvec(x)) / np.linalg.norm(b) <= 1e-9
 
 
+def _cpu_auto_is_block(monkeypatch):
+    """"auto" as the card resolves it ("block"), on the CPU too, for the
+    reference solves."""
+    real = tilu._resolve_trisolve_mode
+    monkeypatch.setattr(tilu, "_resolve_trisolve_mode",
+                        lambda mode, device=None: "block" if mode == "auto"
+                        else real(mode, device))
+
+
 @pytest.mark.parametrize("orthog", ["mgs", "cgs2"])
-def test_gmres_ilut_on_cuda_runs_k1_and_matches_cpu(cuda, orthog):
-    """solve()'s nonsymmetric default (GMRES + ILUT, level-scheduled) on
-    a DiaMatrix: K1 for every product, the CPU port's iterations."""
+def test_gmres_ilut_on_cuda_runs_k1_and_matches_cpu(cuda, orthog,
+                                                     monkeypatch):
+    """solve()'s nonsymmetric default (GMRES + ILUT, "auto" = block solves
+    on the card) on a DiaMatrix: K1 for every product, K8 twice per
+    apply, the CPU port's iterations in block mode."""
     H, x_star, b = _convdiff(63)
-    spmv.dia_spmv_launches = 0
+    spmv.dia_spmv_launches = tbt.block_trisolve_launches = 0
     st = pt.solve(H, b, tau=1e-10, orthog=orthog)
     # one product per iteration, one per cycle start, one true residual
     assert spmv.dia_spmv_launches == st.iters + 2
+    # right preconditioning: one apply per iteration and one to form x
+    assert tbt.block_trisolve_launches == 2 * (st.iters + 1)
+    _cpu_auto_is_block(monkeypatch)
     _same_solve(st, pt.solve(H, b, tau=1e-10, orthog=orthog, device="cpu"),
                 H, b)
 
 
-def test_pcg_ic_on_cuda_matches_cpu(cuda):
+def test_pcg_ic_on_cuda_matches_cpu(cuda, monkeypatch):
     H = pt.problems.fd_laplacian_2d(64)
     b = H.matvec(np.random.default_rng(3).random(H.shape[0]))
-    spmv.dia_spmv_launches = 0
+    spmv.dia_spmv_launches = tbt.block_trisolve_launches = 0
     st = pt.solve(H, b, tau=1e-10)
     assert spmv.dia_spmv_launches == st.iters + 1
+    assert tbt.block_trisolve_launches > 0
+    _cpu_auto_is_block(monkeypatch)
     _same_solve(st, pt.solve(H, b, tau=1e-10, device="cpu"), H, b)
 
 
@@ -754,14 +782,41 @@ def test_jacobi_bws_raises_on_cuda_rather_than_degrade(cuda, monkeypatch):
                            torch.device(cuda))
 
 
-def test_block_lane_gmres_launches_k4(cuda):
+def test_block_miss_raises_on_cuda(cuda, monkeypatch):
+    """Where the block path does not apply on the card, nothing falls to
+    torch's level loop or sweeps: an explicit "block" raises naming the
+    modes to pass, and "auto" takes the K2 sweeps, which raise for a
+    factor that does not pack."""
+    from pysolvers_tpu_torch.linear import ilu as tilu
+    boom = lambda *a, **k: (_ for _ in ()).throw(AssertionError("degraded"))
+    monkeypatch.setattr(tilu, "build_trisolve_plan", boom)
+    n = 40_000                 # tridiagonal, first and last unknowns coupled
+    rows = np.r_[np.arange(n), np.arange(1, n), np.arange(n - 1), 0, n - 1]
+    cols = np.r_[np.arange(n), np.arange(n - 1), np.arange(1, n), n - 1, 0]
+    vals = np.r_[np.full(n, 4.0), -np.ones(2 * (n - 1)), -1.0, -1.0]
+    H = pt.HostCSR.from_coo(rows, cols, vals, (n, n))
+    with pytest.raises(ValueError, match="not banded enough.*"
+                                         "trisolve_mode='level'"):
+        pt.ICPreconditionerType(trisolve_mode="block").form(H, device=cuda)
+    with pytest.warns(UserWarning, match="Jacobi/BWS sweeps"), \
+            pytest.raises(ValueError, match="the lower factor does not pack"):
+        pt.ILUTPreconditionerType().form(H, device=cuda)
+
+
+def test_block_lane_gmres_launches_k4(cuda, monkeypatch):
+    """The block lane's GMRES: K4 for every product.  Its scalar IC(t)
+    factors in f32 and, in block mode ("auto" on the card), applies by K8
+    in f64 plans of that factor: exact, so non-flexible GMRES converges."""
+    _cpu_auto_is_block(monkeypatch)      # the scalar IC's reference solves
     H = pt.problems.fd_vector_laplacian_2d(32, b=5, coupling=0.2)
     b = H.matvec(np.random.default_rng(5).random(H.shape[0]))
     for precond in ("auto", "ic"):
-        spmv.bdia_spmv_launches = 0
+        spmv.bdia_spmv_launches = tbt.block_trisolve_launches = 0
         st = pt.solve(pt.BdiaMatrix.from_host_csr(H, 5, device=cuda), b,
                       tau=1e-10, method="gmres", precond=precond)
         assert spmv.bdia_spmv_launches == st.iters + 2
+        if precond == "ic":
+            assert tbt.block_trisolve_launches == 2 * (st.iters + 1)
         ref = pt.solve(pt.BdiaMatrix.from_host_csr(H, 5, device="cpu"), b,
                        tau=1e-10, method="gmres", precond=precond)
         _same_solve(st, ref, H, b)
@@ -791,7 +846,8 @@ def test_direct_on_cuda(cuda, form):
 def test_new_routes_never_run_a_twin_on_cuda(cuda, monkeypatch):
     boom = lambda *a: (_ for _ in ()).throw(AssertionError("twin on CUDA"))
     for mod, name in ((spmv, "dia_spmv_torch"), (spmv, "bdia_spmm_torch"),
-                      (spmv, "bdia_spmv_torch"), (tbws, "bws_spmv_torch")):
+                      (spmv, "bdia_spmv_torch"), (tbws, "bws_spmv_torch"),
+                      (tbt, "block_trisolve_torch")):
         monkeypatch.setattr(mod, name, boom)
     H, _, b = _convdiff(31)
     assert pt.solve(H, b, tau=1e-10).success
@@ -966,3 +1022,93 @@ def test_gmg_f32_route_on_cuda_runs_k6(cuda, monkeypatch):
     assert counts["K1", "float32"] > 0                 # the m <= 31 levels
     xh = x.cpu().numpy()
     assert np.linalg.norm(b - H.matvec(xh)) <= 1.01e-10 * np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# K8: the block-banded triangular solve
+# ---------------------------------------------------------------------------
+
+def _k8_factor(name):
+    """(factor, lower, unit diagonal, bs) of a K8 case: ILUT of the
+    convection-diffusion operator (m = 15 keeps multipliers in L; m = 63
+    and 255 are the solve paths' sizes, n = 3,969 and 65,025), IC of the
+    5-point Laplacian (phase 17's m = 129) and of the block lane's
+    node-major vector Laplacian (p = 2 at bs = 256)."""
+    kind, what, bs = name.rsplit("_", 2)
+    if kind.startswith("convdiff"):
+        L, U = tilu.ilut_factor(pt.fd_convection_diffusion_2d(
+            int(kind[8:])), 1e-4)
+        T = {"L": (L, True, True), "U": (U, False, False)}[what]
+    else:
+        H = (pt.problems.fd_laplacian_2d(129) if kind == "laplacian129"
+             else pt.problems.fd_vector_laplacian_2d(64, b=5, coupling=0.2))
+        Lc = tilu.ict_factor(H, 1e-4)
+        T = {"L": (Lc, True, False), "Lt": (Lc.transpose(), False, False)}[
+            what]
+    return (*T, int(bs))
+
+
+K8_CASES = ["convdiff15_L_64", "convdiff15_U_64", "convdiff15_L_256",
+            "convdiff63_U_256", "convdiff255_U_256", "laplacian129_L_256",
+            "laplacian129_Lt_256", "vector64_L_256", "vector64_Lt_256"]
+
+
+def _k8_plan(name, dtype, cuda):
+    T, lower, unit, bs = _k8_factor(name)
+    return tbt.build_block_trisolve_plan(
+        T, lower, unit, bs=bs, dtype=str(dtype).split(".")[1], device=cuda)
+
+
+@pytest.mark.parametrize("case", K8_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k8_matches_twin(cuda, case, dtype):
+    plan = _k8_plan(case, dtype, cuda)
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal(plan.n),
+                        dtype=torch.float64, device=cuda)
+    before = tbt.block_trisolve_launches
+    x = tbt.block_trisolve(plan, b)
+    assert tbt.block_trisolve_launches == before + 1
+    ref = tbt.block_trisolve_torch(plan, b)
+    assert x.dtype == torch.float64 and bool(torch.isfinite(x).all())
+    assert _rel(x, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def test_k8_never_runs_the_twin_and_raises_on_a_failed_build(cuda,
+                                                             monkeypatch):
+    """The block apply on the card goes through K8 only; a K8 that cannot
+    be built raises instead of falling back."""
+    from pysolvers_tpu_torch.ops import _cuda_build
+    boom = lambda *a: (_ for _ in ()).throw(AssertionError("twin on CUDA"))
+    monkeypatch.setattr(tbt, "block_trisolve_torch", boom)
+    H, _, b = _convdiff(31)
+    prec = pt.ILUTPreconditionerType().form(H, device=cuda)
+    assert all(p.device.type == "cuda" for p in prec.state)
+    tbt.block_trisolve_launches = 0
+    prec.apply_any(torch.as_tensor(b, device=cuda))
+    assert tbt.block_trisolve_launches == 2
+    monkeypatch.setattr(tbt, "_K8_ENTRIES", {})
+    monkeypatch.setattr(_cuda_build, "_LIBS", {})
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(_cuda_build, "build", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        prec.apply_any(torch.as_tensor(b, device=cuda))
+
+
+def test_auto_block_on_cuda_warns_nothing_on_the_paths(cuda):
+    """"auto" on the card runs block plans, with no degrade warning, on
+    the banded solve paths (ILUT, IC, the block lane's IC)."""
+    import warnings
+    H, _, b = _convdiff(63)
+    Hv = pt.problems.fd_vector_laplacian_2d(32, b=5, coupling=0.2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tbt.block_trisolve_launches = 0
+        assert pt.solve(H, b, tau=1e-10).success
+        assert pt.solve(pt.problems.fd_laplacian_2d(64), np.ones(4096),
+                        tau=1e-10).success
+        assert pt.solve(pt.BdiaMatrix.from_host_csr(Hv, 5, device=cuda),
+                        Hv.matvec(np.ones(Hv.shape[0])), tau=1e-10,
+                        precond="ic").success
+    assert tbt.block_trisolve_launches > 0

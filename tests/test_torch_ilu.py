@@ -240,15 +240,6 @@ def test_jacobi_bws_zero_pivot_raises_off_the_cpu():
         tilu._factor_apply(L, U, True, "jacobi_bws", 10, np.float64, "cpu")
 
 
-@pytest.mark.parametrize("T", [pt.ILUTPreconditionerType,
-                               pt.ICPreconditionerType])
-def test_block_mode_raises(T):
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 8"):
-        T(trisolve_mode="block")
-    with pytest.raises(ValueError, match="trisolve_mode"):
-        T(trisolve_mode="levels")
-
-
 def test_fill_guard_raises():
     H = pt.problems.fd_convection_diffusion_2d(8)
     L, U = tilu.ilut_factor(H, 1e-4)

@@ -36,5 +36,5 @@ def test_scan_sees_the_package():
                 "linear/block_precond.py", "ops/grid_spmv.py",
                 "linear/gmg.py", "linear/gmg_grid.py", "linear/amg_rs.py",
                 "linear/ilu.py", "linear/arnoldi.py", "linear/operator.py",
-                "linear/refine.py"):
+                "linear/refine.py", "ops/block_trisolve.py"):
         assert ROOT / "pysolvers_tpu_torch" / rel in FILES

@@ -92,9 +92,6 @@ UNPORTED = {
             H, use_rcm=False, device="cpu")), np.stack([b, b], axis=1)),
     "amg_galerkin_device": lambda H, b: pt.AMG(galerkin="device"),
     "vcycle_mesh": lambda H, b: pt.AMGVCycle(mesh=object()),
-    "trisolve_block": lambda H, b: pt.GMRES(
-        precond=pt.ILUTPreconditionerType(trisolve_mode="block"),
-        device="cpu").make_solver().solve(H, b),
 }
 
 
