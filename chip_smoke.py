@@ -82,9 +82,11 @@ more (any failure raises and the script exits non-zero):
    fd_laplacian_2d(129), block solves (K8) under "auto";
 26. K8 (``csrc/block_trisolve.cu``) against its twin on phase 16's ILUT
    factors and phase 17's IC factor and its transpose, f32 and f64:
-   error bound, CUDA-event times beside the bytes bound and the
-   level-scheduled solve of the same factor (no library call solves a
-   banded triangular system);
+   error bound, the launch geometry (cluster size, stages), CUDA-event
+   times beside the bytes bounds (the plan's, its lower triangles', the
+   factor's), the library call (``torch.triangular_solve`` of the factor
+   as a sparse CSR tensor: cuSPARSE's SpSV) and the level-scheduled
+   solve of the same factor;
 18. GMRES + SA-AMG on phase 4's operator (n = 1,046,529) with MGS and with
    CGS2: at most 10 iterations, ms per iteration (the median of five
    frozen repeats) beside phase 4's PCG;
@@ -1859,12 +1861,28 @@ def pcg_ic(device):
                 level_ms=level_ms, block=prec, level=level, v=v)
 
 
+def k8_geometry_text(plan):
+    """K8's launch geometry for ``plan`` as phase 26 prints it."""
+    from pysolvers_tpu_torch.ops import block_trisolve as bt
+    geo = bt.k8_launch_geometry(plan)
+    if geo is None:
+        return "stage 1 alone (p = 0)", None
+    return (f"cluster {geo.cluster} CTAs x {geo.rows} rows, {geo.stages} "
+            f"stages of {geo.chunk_bytes} B ({geo.chunks} chunk(s) a step, "
+            f"{'bulk copies' if geo.bulk else 'cp.async per value'}), "
+            f"{geo.vec} row(s) of x a message, {geo.smem_bytes} B shared a "
+            f"CTA"), geo
+
+
 def check_k8(p16, p17, device):
     """Phase 26: K8 against its twin on phase 16's ILUT factors and phase
-    17's IC factor and its transpose, f32 and f64: the error, CUDA-event
-    times of both, the bytes bound and the level-scheduled solve of the
-    same factor.  Returns the kernels-record numbers at phase 16's U in
-    f64, the path's widest solve."""
+    17's IC factor and its transpose, f32 and f64: the error, the launch
+    geometry, CUDA-event times of K8, its twin and the library call
+    (``torch.triangular_solve`` with the factor as a CUDA sparse CSR
+    tensor, which runs cuSPARSE's SpSV, in turns with K8), the bytes
+    bounds and the level-scheduled solve of the same factor.  Returns the
+    kernels-record numbers at phase 16's U in f64, the path's widest
+    solve."""
     import torch
     from pysolvers_tpu_torch.ops import block_trisolve as bt
     from pysolvers_tpu_torch.ops import trisolve as lt
@@ -1872,6 +1890,7 @@ def check_k8(p16, p17, device):
     rng = np.random.default_rng(4)
     Lc = p17["Lc"]
     record = None
+    lib_name = "torch.triangular_solve (sparse CSR: cuSPARSE SpSV)"
     for name, T, lower, unit in (
             ("phase 16 ILUT L", p16["L"], True, True),
             ("phase 16 ILUT U", p16["U"], False, False),
@@ -1881,6 +1900,7 @@ def check_k8(p16, p17, device):
         for dts in ("float32", "float64"):
             plan = bt.build_block_trisolve_plan(T, lower, unit, dtype=dts,
                                                 device=device)
+            geo_text, geo = k8_geometry_text(plan)
             b = torch.as_tensor(bh, dtype=plan.dtype, device=device)
             x = bt.block_trisolve(plan, b)
             ref = bt.block_trisolve_torch(plan, b)
@@ -1888,9 +1908,17 @@ def check_k8(p16, p17, device):
             abs_err = float((x - ref).abs().max())
             rel = abs_err / float(ref.abs().max())
             ok = bool(torch.isfinite(x).all()) and rel <= K8_TOL[dts]
-            ms, plain_ms, _ = time_pair(lambda: bt.block_trisolve(plan, b),
-                                        lambda: bt.block_trisolve_torch(
-                                            plan, b), runs=7, calls=5)
+            T_csr = csr_of_host(T, plan.dtype, device)
+            b2 = b[:, None].contiguous()
+            lib, lib_err = try_library(lambda: torch.triangular_solve(
+                b2, T_csr, upper=not lower, unitriangular=unit))
+            if lib is not None:
+                library_agrees(x, lib().solution[:, 0], K8_TOL[dts],
+                               f"K8 on {name} {dts}")
+            ms, plain_ms, lib_ms = time_pair(
+                lambda: bt.block_trisolve(plan, b),
+                lambda: bt.block_trisolve_torch(plan, b), library=lib,
+                runs=7, calls=5)
             lp = lt.build_trisolve_plan(T, lower, unit, dtype=dts,
                                         device=device)
             level_ms = wall_ms(lambda: lt.trisolve(lp, b), calls=3)
@@ -1899,28 +1927,41 @@ def check_k8(p16, p17, device):
                       + 2 * plan.n * size)
             bnd = bound(nbytes, 2 * plan.nb * plan.bs * (plan.p + 1)
                         * plan.bs, dts)
+            # what stage 1 reads of dinv: its lower triangles
+            tri = plan.nb * plan.bs * (plan.bs + 1) // 2
+            tbytes = (plan.s_hat.numel() + tri) * size + 2 * plan.n * size
+            tbnd = bound(tbytes, 2 * (plan.s_hat.numel() + tri), dts)
             # what the solve itself needs: the factor's nonzeros, not the
             # plan's dense blocks
             fbnd = bound(factor_bytes((T,), size), 2 * T.nnz, dts)
             phase(26, f"K8 {name} {dts} n={plan.n} nnz={T.nnz} (blocks, "
                       f"bs, reach) {block_shape(plan)} rel_err={rel:.3e} "
                       f"(tol {K8_TOL[dts]:g}) K8 {ms:.4f} ms "
-                      f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
-                      f"{bnd['bound_ms']:.4f} ms by the plan's bytes "
-                      f"({100 * bnd['bound_ms'] / ms:.2f} %), "
+                      f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, {geo_text}; "
+                      f"bound {bnd['bound_ms']:.4f} ms by the plan's "
+                      f"{nbytes} bytes ({100 * bnd['bound_ms'] / ms:.2f} %), "
+                      f"{tbnd['bound_ms']:.4f} ms by its {tbytes} bytes "
+                      f"with dinv's lower triangles "
+                      f"({100 * tbnd['bound_ms'] / ms:.2f} %), "
                       f"{fbnd['bound_ms']:.4f} ms by the factor's "
                       f"({100 * fbnd['bound_ms'] / ms:.3f} %) | twin "
-                      f"{plain_ms:.4f} ms | level-scheduled solve "
-                      f"{level_ms:.4f} ms wall | library: none | {card}")
+                      f"{plain_ms:.4f} ms | "
+                      f"{lib_text(lib_name, lib_ms, lib_err)} | "
+                      f"level-scheduled solve {level_ms:.4f} ms wall | {card}")
             if not ok:
                 raise SystemExit(f"K8 disagrees with its twin on {name} "
                                  f"{dts}: rel {rel:.3e} > {K8_TOL[dts]:g}")
             if name == "phase 16 ILUT U" and dts == "float64":
+                # bound_ms: what the function needs (the factor's CSR);
+                # the bounds of the plan's dense blocks and of their lower
+                # triangles stand beside it
                 record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                              level_ms=level_ms, **bnd,
-                              factor_bound_ms=fbnd["bound_ms"],
-                              library_ms=None, library_call=None)
-            del plan, lp, x, ref
+                              level_ms=level_ms, **fbnd,
+                              plan_bound_ms=bnd["bound_ms"],
+                              triangle_bound_ms=tbnd["bound_ms"],
+                              cluster=geo.cluster, stages=geo.stages,
+                              **library_fields(lib_name, lib_ms, lib_err))
+            del plan, lp, x, ref, T_csr, lib
     return record
 
 

@@ -17,8 +17,12 @@ lower triangular.
 * ``block_trisolve`` — the wrapper of kernel K8 (``csrc/block_trisolve.cu``),
   the hand-written CUDA form of the JAX package's ``lax.scan``
   (``block_trisolve.py:349-381``; XLA ops there, not a Pallas kernel): one
-  launch per solve, f32 and f64.  A CPU tensor goes to the plain twin
-  ``block_trisolve_torch``; a CUDA tensor launches K8 or raises.
+  launch per solve, f32 and f64: the diagonal blocks over all SMs, then
+  the walk over the blocks on one thread-block cluster, whose size
+  ``k8_launch_geometry`` picks (the kernel's source works out the rest of
+  the geometry; ``k8_geometry`` reports it).  A CPU tensor goes to the
+  plain twin ``block_trisolve_torch``; a CUDA tensor launches K8 or
+  raises.
 * ``block_trisolve_torch`` — the twin: a batched product for the diagonal
   blocks, then a Python loop over the blocks, as ``lax.scan`` runs them.
 * ``build_block_trisolve_plan`` / ``build_block_trisolve_plan_pair`` — the
@@ -52,9 +56,65 @@ from . import _cuda_build
 block_trisolve_launches = 0
 
 # K8 holds a block of b (stage 1) and p + 1 blocks of x (stage 2) in
-# shared memory without opting in above the default 48 KB
+# shared memory; the ring of x blocks stays within 48 KB
 K8_MAX_BS = 1024
 K8_SHARED_BYTES = 48 * 1024
+
+# K8's stage 2 (csrc/block_trisolve.cu) runs on one thread-block cluster:
+# the sizes tried in order (16 CTAs where the card fits it, else 8)
+K8_CLUSTERS = (16, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class K8Geometry:
+    """The launch geometry of K8's stage 2 for one (bs, p, dtype, cluster),
+    as the kernel's source works it out (``block_trisolve_geometry``).
+
+    cluster:        CTAs in the cluster
+    rows:           rows of each step a CTA owns (CTA c: c*rows onwards;
+                    the last CTAs may own fewer, or none)
+    rows_per_chunk: whole rows of ``s_hat`` in one stage of the stream
+    chunks:         chunks of a full CTA's slice per step
+    stages:         stages of the stream in shared memory
+    chunk_bytes:    one stage's bytes (a multiple of 128)
+    smem_bytes:     the CTA's dynamic shared memory: the mbarriers (one
+                    per stage, two for x), the ring of p + 1 x blocks, the
+                    stages
+    bulk:           rows of s_hat are 16-byte multiples: each chunk is one
+                    bulk async copy (TMA); else cp.async of one value each
+    vec:            rows of x a compute warp computes together and sends
+                    to each CTA as one 16-byte message (16 / itemsize,
+                    where rows, bs and rows_per_chunk are its multiples;
+                    else 1)
+    """
+
+    cluster: int
+    rows: int
+    rows_per_chunk: int
+    chunks: int
+    stages: int
+    chunk_bytes: int
+    smem_bytes: int
+    bulk: bool
+    vec: int
+
+
+def k8_geometry(bs: int, p: int, itemsize: int, cluster: int) -> K8Geometry:
+    """K8's stage-2 geometry for blocks of ``bs`` rows, block reach ``p``
+    >= 1 and values of ``itemsize`` bytes on a cluster of ``cluster`` CTAs,
+    asked of the kernel's library (so it builds K8).  Raises ValueError
+    where none fits."""
+    out = (ctypes.c_int * 8)()
+    if _k8_lib().block_trisolve_geometry(bs, p, itemsize, cluster, out):
+        raise ValueError(f"no K8 stage 2 for bs = {bs}, p = {p}, "
+                         f"{itemsize}-byte values, cluster = {cluster}")
+    rows, per_chunk, chunks, stages, chunk_bytes, smem, bulk, vec = out
+    return K8Geometry(cluster, rows, per_chunk, chunks, stages, chunk_bytes,
+                      smem, bool(bulk), vec)
+
+
+# (dtype, bs, p, device) -> the K8Geometry the card runs
+_K8_GEOMETRY: dict = {}
 
 _K8_ENTRIES: dict = {}
 
@@ -247,17 +307,69 @@ def block_trisolve_torch(plan: BlockTriSolvePlan, b: torch.Tensor
     return (x.flip(0) if plan.flip else x).to(b.dtype)
 
 
+def _k8_lib():
+    lib = _cuda_build.load("block_trisolve")
+    lib.block_trisolve_error_string.argtypes = [ctypes.c_int]
+    lib.block_trisolve_error_string.restype = ctypes.c_char_p
+    lib.block_trisolve_geometry.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.block_trisolve_geometry.restype = ctypes.c_int
+    for query in (lib.block_trisolve_max_clusters_f32,
+                  lib.block_trisolve_max_clusters_f64):
+        query.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        query.restype = ctypes.c_int
+    return lib
+
+
+def _k8_error(rc: int) -> str:
+    name = _k8_lib().block_trisolve_error_string(rc)
+    return f"CUDA error {rc} ({name.decode()})"
+
+
 def _k8_entry(dtype):
     fn = _K8_ENTRIES.get(dtype)
     if fn is None:
-        lib = _cuda_build.load("block_trisolve")
+        lib = _k8_lib()
         fn = (lib.block_trisolve_f32 if dtype == torch.float32
               else lib.block_trisolve_f64)
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _K8_ENTRIES[dtype] = fn
     return fn
+
+
+def k8_launch_geometry(plan: BlockTriSolvePlan) -> K8Geometry | None:
+    """The stage-2 geometry K8 launches for ``plan`` on its card (None for
+    p = 0, where stage 1 is the whole solve): a cluster of 16 CTAs where
+    ``cudaOccupancyMaxActiveClusters`` says the card runs one, else of 8.
+    Asked once per (dtype, bs, p, device); raises when neither fits."""
+    if plan.p == 0:
+        return None
+    key = (plan.dtype, plan.bs, plan.p, plan.device)
+    geo = _K8_GEOMETRY.get(key)
+    if geo is not None:
+        return geo
+    lib = _k8_lib()
+    query = (lib.block_trisolve_max_clusters_f32
+             if plan.dtype == torch.float32
+             else lib.block_trisolve_max_clusters_f64)
+    for cluster in K8_CLUSTERS:
+        geo = k8_geometry(plan.bs, plan.p, plan.dinv.element_size(), cluster)
+        fits = ctypes.c_int(0)
+        with torch.cuda.device(plan.device):
+            rc = query(plan.bs, plan.p, cluster, ctypes.byref(fits))
+        if rc != 0:
+            raise RuntimeError(f"K8: the occupancy query of a {cluster}-CTA "
+                               f"cluster with {geo.smem_bytes} bytes of "
+                               f"shared memory failed: {_k8_error(rc)}")
+        if fits.value >= 1:
+            _K8_GEOMETRY[key] = geo
+            return geo
+    raise RuntimeError(f"K8: the card runs no cluster of "
+                       f"{' or '.join(map(str, K8_CLUSTERS))} CTAs with "
+                       f"{geo.smem_bytes} bytes of shared memory each "
+                       f"(bs = {plan.bs}, p = {plan.p}, {plan.dtype})")
 
 
 def block_trisolve(plan: BlockTriSolvePlan, b: torch.Tensor) -> torch.Tensor:
@@ -287,14 +399,19 @@ def block_trisolve(plan: BlockTriSolvePlan, b: torch.Tensor) -> torch.Tensor:
     bd = b.to(dt).contiguous()
     x = torch.empty(n, dtype=dt, device=b.device)
     u = torch.empty(nb * bs if p else 0, dtype=dt, device=b.device)
+    geo = k8_launch_geometry(plan)
     fn = _k8_entry(dt)
     with torch.cuda.device(b.device):
         rc = fn(plan.s_hat.data_ptr(), plan.dinv.data_ptr(), bd.data_ptr(),
                 u.data_ptr(), x.data_ptr(), n, nb, bs, p, int(plan.flip),
+                geo.cluster if geo else 0,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"K8 (block_trisolve) launch failed: CUDA error "
-                           f"{rc}")
+        where = (f"the cluster launch of {geo.cluster} CTAs, {geo.stages} "
+                 f"stages, {geo.smem_bytes} bytes of shared memory each"
+                 if geo else "the diagonal-block launch")
+        raise RuntimeError(f"K8 (block_trisolve) launch failed: {where}: "
+                           f"{_k8_error(rc)}")
     block_trisolve_launches += 1
     _cuda_build.count_launch("K8", dt)
     return x.to(b.dtype)

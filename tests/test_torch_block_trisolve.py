@@ -384,3 +384,29 @@ def test_block_lane_gmres_ic_matches_jax(monkeypatch):
     assert np.linalg.norm(b - Ht.matvec(x)) <= 1e-10 * np.linalg.norm(b)
     xj = np.asarray(sj.soln)
     assert np.linalg.norm(x - xj) / np.linalg.norm(xj) <= 1e-5
+
+
+def _dinv_factor(name):
+    if name in ("ilut_L", "ilut_U"):
+        L, U = tilu.ilut_factor(pt.fd_convection_diffusion_2d(15), 1e-4)
+        return (L, True, True) if name == "ilut_L" else (U, False, False)
+    Lc = tilu.ict_factor(pt.problems.fd_laplacian_2d(20), 1e-4)
+    return (Lc, True, False) if name == "ic_L" else (Lc.transpose(), False,
+                                                     False)
+
+
+@pytest.mark.parametrize("name", ["ilut_L", "ilut_U", "ic_L", "ic_Lt"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dinv_is_exactly_lower_triangular(name, dtype):
+    """K8's stage 1 reads row r of dinv_i up to column r only: the plans
+    hold exact zeros above the diagonal, at block sizes that do and do not
+    divide n, so that reading the triangle computes dinv_i b_i."""
+    T, lower, unit = _dinv_factor(name)
+    for bs in (16, 63, 64, 256):
+        plan = tbt.build_block_trisolve_plan(T, lower, unit, bs=bs,
+                                             dtype=dtype, device="cpu")
+        assert bool((torch.triu(plan.dinv, 1) == 0).all())
+        b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            plan.nb * bs)).to(plan.dtype).view(plan.nb, bs, 1)
+        tri = torch.tril(plan.dinv)
+        assert torch.equal(torch.bmm(tri, b), torch.bmm(plan.dinv, b))

@@ -1028,19 +1028,35 @@ def test_gmg_f32_route_on_cuda_runs_k6(cuda, monkeypatch):
 # K8: the block-banded triangular solve
 # ---------------------------------------------------------------------------
 
+def _k8_band(n=5000):
+    """A banded lower factor reaching back 3500 rows: p = 4 at bs = 1024,
+    the widest plan K8 streams (one 32 KB row per chunk in f64)."""
+    rng = np.random.default_rng(7)
+    i = np.arange(n)
+    rows = np.concatenate([i, i[1:], i[3500:]])
+    cols = np.concatenate([i, i[:-1], i[:-3500]])
+    vals = np.concatenate([4.0 + rng.random(n), rng.uniform(-1, 1, n - 1),
+                           rng.uniform(-1, 1, n - 3500)])
+    return HostCSR.from_coo(rows, cols, vals, (n, n))
+
+
 def _k8_factor(name):
     """(factor, lower, unit diagonal, bs) of a K8 case: ILUT of the
     convection-diffusion operator (m = 15 keeps multipliers in L; m = 63
     and 255 are the solve paths' sizes, n = 3,969 and 65,025), IC of the
-    5-point Laplacian (phase 17's m = 129) and of the block lane's
-    node-major vector Laplacian (p = 2 at bs = 256)."""
+    5-point Laplacian (phase 17's m = 129, and m = 63) and of the block
+    lane's node-major vector Laplacian (p = 2 at bs = 256), and a banded
+    factor with p = 4 at bs = 1024."""
     kind, what, bs = name.rsplit("_", 2)
     if kind.startswith("convdiff"):
         L, U = tilu.ilut_factor(pt.fd_convection_diffusion_2d(
             int(kind[8:])), 1e-4)
         T = {"L": (L, True, True), "U": (U, False, False)}[what]
+    elif kind == "band5000":
+        T = (_k8_band(), True, False)
     else:
-        H = (pt.problems.fd_laplacian_2d(129) if kind == "laplacian129"
+        H = (pt.problems.fd_laplacian_2d(int(kind[9:]))
+             if kind.startswith("laplacian")
              else pt.problems.fd_vector_laplacian_2d(64, b=5, coupling=0.2))
         Lc = tilu.ict_factor(H, 1e-4)
         T = {"L": (Lc, True, False), "Lt": (Lc.transpose(), False, False)}[
@@ -1048,9 +1064,26 @@ def _k8_factor(name):
     return (*T, int(bs))
 
 
+# the paths' factors, then every geometry the cluster walk handles: p = 3
+# (laplacian129 at bs = 64), p = 4 (laplacian129 at bs = 40, laplacian63
+# at bs = 16, band5000 at bs = 1024), rows that are not 16-byte multiples
+# (bs = 63, p = 3: cp.async per value in f32 and f64), bs not a multiple
+# of the cluster (40, 63: the last CTAs own fewer rows or none), nb = 1
+# (n < bs, p = 0: stage 1 alone), bs = 1024 (laplacian129: p = 1, nb = 17)
 K8_CASES = ["convdiff15_L_64", "convdiff15_U_64", "convdiff15_L_256",
             "convdiff63_U_256", "convdiff255_U_256", "laplacian129_L_256",
-            "laplacian129_Lt_256", "vector64_L_256", "vector64_Lt_256"]
+            "laplacian129_Lt_256", "vector64_L_256", "vector64_Lt_256",
+            "laplacian129_L_64", "laplacian129_Lt_64", "laplacian129_L_40",
+            "laplacian129_Lt_40", "laplacian63_L_16", "laplacian63_Lt_16",
+            "laplacian129_L_63", "laplacian129_Lt_63", "convdiff15_U_1024",
+            "laplacian129_L_1024", "laplacian129_Lt_1024", "band5000_L_1024"]
+
+# the block reach each case must have, so that a change of the factors
+# cannot quietly drop a geometry
+K8_REACH = {"laplacian129_L_64": 3, "laplacian129_L_40": 4,
+            "laplacian63_L_16": 4, "laplacian129_L_63": 3,
+            "convdiff15_U_1024": 0, "laplacian129_L_1024": 1,
+            "band5000_L_1024": 4}
 
 
 def _k8_plan(name, dtype, cuda):
@@ -1063,6 +1096,7 @@ def _k8_plan(name, dtype, cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k8_matches_twin(cuda, case, dtype):
     plan = _k8_plan(case, dtype, cuda)
+    assert plan.p == K8_REACH.get(case.replace("_Lt_", "_L_"), plan.p)
     b = torch.as_tensor(np.random.default_rng(0).standard_normal(plan.n),
                         dtype=torch.float64, device=cuda)
     before = tbt.block_trisolve_launches
@@ -1071,6 +1105,121 @@ def test_k8_matches_twin(cuda, case, dtype):
     ref = tbt.block_trisolve_torch(plan, b)
     assert x.dtype == torch.float64 and bool(torch.isfinite(x).all())
     assert _rel(x, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.parametrize("case", ["convdiff255_U_256", "laplacian129_L_63",
+                                  "band5000_L_1024", "convdiff63_U_256"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k8_is_one_launch_and_never_syncs(cuda, case, dtype):
+    """One solve is one K8 launch (both stages from one C call: one count
+    in block_trisolve_launches and in launches_by_dtype) and makes no host
+    round trip, with bulk copies (bs = 256, 1024) and with cp.async per
+    value (bs = 63); the cluster size is 16 or 8."""
+    from pysolvers_tpu_torch.ops import _cuda_build
+    plan = _k8_plan(case, dtype, cuda)
+    b = torch.randn(plan.n, dtype=dtype, device=cuda)
+    ref = tbt.block_trisolve_torch(plan, b)
+    geo = tbt.k8_launch_geometry(plan)
+    assert geo is None or geo.cluster in tbt.K8_CLUSTERS
+    tbt.block_trisolve(plan, b)                   # builds K8
+    torch.cuda.synchronize()
+    before = tbt.block_trisolve_launches
+    by_dtype = _cuda_build.launches_by_dtype["K8", str(dtype)[6:]]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = tbt.block_trisolve(plan, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tbt.block_trisolve_launches == before + 1
+    assert _cuda_build.launches_by_dtype["K8", str(dtype)[6:]] == by_dtype + 1
+    assert _rel(x, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.parametrize("case", ["convdiff255_U_256", "laplacian129_L_63",
+                                  "band5000_L_1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k8_on_a_cluster_of_8(cuda, case, dtype, monkeypatch):
+    """The walk on 8 CTAs, the size K8 takes where the card does not fit a
+    cluster of 16: twice the rows a CTA, other stages and chunks."""
+    monkeypatch.setattr(tbt, "K8_CLUSTERS", (8,))
+    monkeypatch.setattr(tbt, "_K8_GEOMETRY", {})
+    plan = _k8_plan(case, dtype, cuda)
+    assert tbt.k8_launch_geometry(plan).cluster == 8
+    b = torch.as_tensor(np.random.default_rng(1).standard_normal(plan.n),
+                        dtype=dtype, device=cuda)
+    x = tbt.block_trisolve(plan, b)
+    ref = tbt.block_trisolve_torch(plan, b)
+    assert _rel(x, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def _k8_shapes(itemsize):
+    """(bs, p) over every bs the wrapper takes: p = 1 .. 4 and the largest
+    p whose ring fits, and its half."""
+    for bs in range(1, tbt.K8_MAX_BS + 1):
+        p_max = tbt.K8_SHARED_BYTES // (bs * itemsize) - 1
+        for p in sorted({1, 2, 3, 4, p_max, max(1, p_max // 2)}):
+            if 1 <= p <= p_max:
+                yield bs, p
+
+
+@pytest.mark.parametrize("cluster", tbt.K8_CLUSTERS)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_k8_geometry_fits_every_accepted_plan(cuda, itemsize, cluster):
+    """The geometry the kernel works out for every plan shape the wrapper
+    takes (bs <= 1024, (p + 1)·bs values within 48 KB): within the 227 KB
+    a CTA may opt in to, every row of a step owned by exactly one CTA and
+    streamed in exactly one chunk, a compute warp's rows within its lanes,
+    at least two stages."""
+    n = 0
+    for bs, p in _k8_shapes(itemsize):
+        g = tbt.k8_geometry(bs, p, itemsize, cluster)
+        row_bytes = p * bs * itemsize
+        assert g.cluster == cluster
+        owned = np.zeros(bs, dtype=np.int64)
+        for c in range(cluster):
+            lo, hi = c * g.rows, min(bs, (c + 1) * g.rows)
+            if lo >= hi:
+                continue
+            owned[lo:hi] += 1
+            chunks = -(-(hi - lo) // g.rows_per_chunk)
+            assert chunks <= g.chunks
+        assert (owned == 1).all()
+        assert 1 <= g.rows_per_chunk <= g.rows
+        assert g.rows_per_chunk * row_bytes <= g.chunk_bytes
+        assert g.chunk_bytes % 128 == 0
+        assert 2 <= g.stages <= 16
+        ring = (p + 1) * bs * itemsize
+        assert g.stages * g.chunk_bytes + ring <= g.smem_bytes <= 227 * 1024
+        assert g.bulk == (row_bytes % 16 == 0)
+        assert g.vec in (1, 16 // itemsize)
+        if g.vec > 1:
+            assert g.rows % g.vec == bs % g.vec == g.rows_per_chunk \
+                % g.vec == 0
+        # 16 compute warps; a warp holds u of its rows, one a lane
+        assert -(-g.rows // (g.vec * 16)) * g.vec <= 32
+        n += 1
+    assert n > 4 * tbt.K8_MAX_BS
+
+
+def test_k8_geometry_of_the_paths(cuda):
+    """Phase 16's U and phase 17's IC factors (bs = 256, p = 1) and the
+    widest plan (bs = 1024, p = 4): the stages and chunks the kernel
+    takes; shapes it cannot run are refused."""
+    g = tbt.k8_geometry(256, 1, 8, 16)
+    assert (g.rows, g.rows_per_chunk, g.chunks, g.stages, g.bulk, g.vec) == (
+        16, 16, 1, 6, True, 2)
+    assert g.chunk_bytes == 16 * 256 * 8          # 32 KB a step
+    assert tbt.k8_geometry(256, 1, 4, 16).vec == 4
+    g = tbt.k8_geometry(1024, 4, 8, 16)
+    assert (g.rows, g.rows_per_chunk, g.chunks, g.stages) == (64, 1, 64, 5)
+    g = tbt.k8_geometry(63, 3, 4, 16)             # odd rows: cp.async
+    assert not g.bulk and g.rows == 4 and g.vec == 1
+    g = tbt.k8_geometry(40, 4, 8, 16)             # CTAs 14 and 15 own none
+    assert g.rows == 3 and g.rows * 14 > 40
+    for bs, p, cluster in ((256, 0, 16), (256, 1, 32), (1024, 1, 1)):
+        with pytest.raises(ValueError, match="no K8 stage 2"):
+            tbt.k8_geometry(bs, p, 8, cluster)
 
 
 def test_k8_never_runs_the_twin_and_raises_on_a_failed_build(cuda,
