@@ -116,6 +116,24 @@ more (any failure raises and the script exits non-zero):
 25. mixed precision, short: ``solve()`` on fd_convection_diffusion_2d(63)
    (GMRES + ILUT, the f64 FGMRES inner, f32 block plans on K8) gated on
    the JAX package's block-mode count;
+27. Newton at the reference's sizes, no device argument: FuncAdapter1D on
+   x² − 2 and arctan with SimpleBacktrack and TrivialLinesearch, and
+   Bratu2D(m=100) with PCG + AMG(5, 2) inside (examples/bratu_example.py)
+   at native and mixed precision (K1 f64; f32 and f64);
+28. Newton at full width, ``benchmarks/bratu_large.py::run_ours`` at m =
+   1023 (n = 1,046,529): the longdouble host outer loop, mixed PCG with
+   the 6-level grid GMG probed on the card from the f32 Jacobian (K1 f32
+   and f64; no level is wide enough for K6); setup, cold and steady
+   walls, inner iterations per step and the host share of the wall;
+29. ``newton_krylov_solve`` on Bratu m = 255, matrix-free (J·v by
+   ``torch.func.jvp`` through K1's autograd.Function, every tangent a K1
+   launch) and with the explicit Jacobian and its Jacobi preconditioner;
+30. ``solve(A, B)`` with k = 8 on fd_laplacian_2d(150): lockstep CG and
+   GMRES (ILUT by K8) at native and mixed precision (mixed GMRES without a
+   restart and with restart=60), the column loop for orthog="cgs2", the
+   direct solve at n = 484, and the mixed route on an unstructured FEM
+   system of the same n (RCM-ordered BWS packs, K2 per column), the native
+   and FEM routes beside k single ``solve()`` calls;
 15. (run last, since a profiler session may leave host overhead on later
    launches) the unstructured path under ``torch.profiler``: phase 7's
    re-solve (busy share, K2's share, launches per iteration) and the
@@ -124,6 +142,12 @@ more (any failure raises and the script exits non-zero):
    median unprofiled wall, device ops per iteration, the shares of K1, of
    K8, of MGS and of the ILUT applies); then phase 17's IC(t) apply by
    block and by level solves (device time and ops per apply).
+
+Phases 27-30 gate on the JAX package's Newton steps, stop reasons and
+iteration counts for the same calls (``tests/jax_newton_counts.py``, its
+accelerator mode) and on host residuals (Newton: ||F|| <= r0·tau + tau in
+f64 by scipy); a kernel's plain twin called with a CUDA tensor there fails
+the run (``no_twin_on_cuda``).
 
 Phases 16, 17, 20 and 25 run "auto", which is "block" on the card, with
 the block path's degrade warnings turned into errors, and must launch K8.
@@ -139,8 +163,8 @@ reads per iteration.
 Then one JSON line on the kernels (each with its bound from the bytes it
 must move and the operations it must do, and the time of the library
 call, which the port itself never makes; ``launches`` counts the main
-path's run, ``path_launches`` the runs of phases 16-25, by dtype for
-21-25), and last the
+path's run, ``path_launches`` the runs of phases 16-30, by dtype for
+21-30), and last the
 device record ``{"ok": true, "device": {...}}``.
 
 ``--bws-sweep`` runs none of that: it builds copies of
@@ -226,6 +250,42 @@ CD_MIXED_M, CD_MIXED_ITERS = 63, 396
 # phase 16's solve under the profiler (phase 15), capped at this many
 # iterations
 PROFILE_MAXITER = 40
+# phases 27-30, Newton and solve(A, B): the JAX package's Newton steps and
+# iteration counts for the same calls on the CPU in its accelerator mode
+# (AMG smoothed by Jacobi, ILU(t)/IC(t) applied by block solves), as the
+# port runs them on the card (tests/jax_newton_counts.py)
+NEWTON_1D_STEPS = {"sqrt2 backtrack": (5, "CONVERGED"),
+                   "sqrt2 trivial": (5, "CONVERGED"),
+                   "arctan backtrack": (4, "CONVERGED"),
+                   "arctan trivial": (9, "INNER_SOLVE_FAIL")}
+BRATU_M = 100                      # 27: examples/bratu_example.py
+BRATU_STEPS = {"native": (3, "CONVERGED"), "mixed": (3, "CONVERGED")}
+# 28: benchmarks/bratu_large.py::run_ours at its default m = 1023 with
+# _mg_levels(1023) = 6; the Newton steps of the JAX package's own record of
+# this call (benchmarks/our_results/bratu_large_r5.jsonl)
+BRATU_LARGE_M, BRATU_LARGE_LEVELS = 1023, 6
+BRATU_LARGE_STEPS = (3, "CONVERGED")
+# 29: the largest of m = 63, 127, 255 at which the JAX package's
+# newton_krylov_solve converges with tests/test_newton_krylov.py's
+# settings; (Newton steps, total CG iterations, reason)
+NK_M = 255
+NK_COUNTS = {"jvp": (6, 1669, "CONVERGED"),
+             "explicit J + Jacobi": (4, 1294, "CONVERGED")}
+# 30: k right-hand sides on phase 5's system, and an unstructured one of
+# the same n
+MULTI_M, MULTI_K, FEM_MULTI_M = 150, 8, 151
+MULTI_ITERS = {"cg": 6, "gmres": 365, "cg mixed": 8,
+               "gmres mixed restart=60": 2463, "gmres cgs2": 365,
+               "direct": 1, "fem cg jacobi mixed": 619}
+# 30, mixed GMRES without a restart (solve()'s default): each refinement
+# pass is one f32 GMRES of up to 1000 steps, and a pass after the first can
+# stagnate at its cap, so the JAX package's own total moves by whole passes
+# when B moves by one f32 rounding (1559 on B, 1545 and 2240 on two such
+# draws, tests/jax_newton_counts.py).  The gates: the first pass, per
+# column, within ITERS_SLACK of JAX's; the total within ITERS_SLACK of one
+# of JAX's three
+MIXED_GMRES_PASS1 = (240, 240, 241, 240, 241, 238, 237, 240)
+MIXED_GMRES_TOTALS = (1559, 1545, 2240)
 KERNELS = ("dia_spmv", "bws_spmv", "lane_gather_probe", "bdia_spmv",
            "grid_dia_spmv", "block_trisolve")
 # K8 against its twin, as max|x_K8 - x_twin| / max|x_twin|: the kernel sums
@@ -606,7 +666,7 @@ def reset_launches():
     from pysolvers_tpu_torch.ops import bws_spmv, grid_spmv, probe, spmv
     _cuda_build.launches_by_dtype.clear()
     block_trisolve.block_trisolve_launches = 0
-    spmv.dia_spmv_launches = 0
+    spmv.dia_spmv_launches = spmv.dia_spmv_jvp_launches = 0
     spmv.bdia_spmv_launches = spmv.bdia_spmm_launches = 0
     bws_spmv.bws_spmv_launches = bws_spmv.bws_spmv_classes_launches = 0
     probe.lane_gather_probe_launches = 0
@@ -2635,6 +2695,390 @@ def mixed_short(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-30: Newton (slice 9) and solve(A, B) (slice 10's rest)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def no_twin_on_cuda():
+    """A kernel's plain twin called with a CUDA tensor fails the phase
+    (phases 27-30): every product there must be a kernel launch."""
+    from pysolvers_tpu_torch.ops import block_trisolve, bws_spmv, grid_spmv
+    from pysolvers_tpu_torch.ops import spmv
+    twins = ((spmv, "dia_spmv_torch"), (spmv, "bdia_spmv_torch"),
+             (spmv, "bdia_spmm_torch"), (bws_spmv, "bws_spmv_torch"),
+             (grid_spmv, "grid_dia_spmv_torch"),
+             (block_trisolve, "block_trisolve_torch"))
+    real = [getattr(mod, name) for mod, name in twins]
+
+    def guard(fn, name):
+        def twin(*args, **kwargs):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                raise SystemExit(f"{name} ran on a CUDA tensor")
+            return fn(*args, **kwargs)
+        return twin
+    for (mod, name), fn in zip(twins, real):
+        setattr(mod, name, guard(fn, name))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(twins, real):
+            setattr(mod, name, fn)
+
+
+def bratu_host_f(prob, u):
+    """F(u) = A u − alpha e^{−u} on the host (scipy), accumulated in
+    longdouble, for the gates ||F|| <= r0·tau + tau: in f64 its evaluation
+    alone rounds by ≈ |A|·eps64 ≈ 1e-11 at m = 100, a fifth of the bound."""
+    import scipy.sparse as sp
+    H = prob.A_host
+    S = sp.csr_matrix((H.data.astype(np.longdouble), H.indices, H.indptr),
+                      shape=H.shape)
+    u = np.asarray(u).astype(np.longdouble)
+    return (S @ u - np.longdouble(prob.alpha) * np.exp(-u)).astype(
+        np.float64)
+
+
+def newton_gate(tag, st, steps, r0, Fn, tau=1e-12):
+    """Newton's gates: the JAX package's steps and stop reason, and the
+    host residual within r0·tau + tau."""
+    if (st.iters, st.reason.name) != steps or not Fn <= r0 * tau + tau:
+        raise SystemExit(f"{tag}: {st.iters} steps {st.reason.name} (JAX "
+                         f"{steps}), host ||F|| {Fn:.3e} against "
+                         f"{r0 * tau + tau:.3e}")
+
+
+def inner_log(factory, log):
+    """The factory, its solvers recording each solve's iterations and wall
+    seconds in ``log``."""
+    make = factory.make_solver
+
+    def make_solver():
+        s = make()
+        solve = s.solve
+
+        def recorded(A, b):
+            st, w = timed(lambda: solve(A, b))
+            log.append((st.iters, w))
+            return st
+        s.solve = recorded
+        return s
+    factory.make_solver = make_solver
+    return factory
+
+
+def newton_small(device):
+    """Phase 27: Newton at the reference's sizes on the card (no device
+    argument): FuncAdapter1D on x² − 2 and arctan with both line searches
+    (examples/newton_example_*.py), and Bratu m = 100 in
+    examples/bratu_example.py's configuration at native and mixed
+    precision.  Returns K1's launches by dtype."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    card = card_line()
+    scalar = {"sqrt2": (lambda x: x * x - 2.0, lambda x: 2.0 * x, 1.0, 20),
+              "arctan": (np.arctan, lambda x: 1.0 / (1.0 + x * x), 2.0, 50)}
+    for key, steps in NEWTON_1D_STEPS.items():
+        name, ls = key.split()
+        f, df, x0, maxiter = scalar[name]
+        search = (pt.SimpleBacktrack() if ls == "backtrack"
+                  else pt.TrivialLinesearch())
+        st = pt.NewtonSolver(pt.SolverConfig(maxiter=maxiter, tau=1e-14),
+                             linesearch=search).solve(
+            pt.FuncAdapter1D(f, df),
+            torch.tensor([x0], dtype=torch.float64, device=device))
+        if (st.iters, st.reason.name) != steps \
+                or st.soln.device.type != device:
+            raise SystemExit(f"phase 27 {key}: {st.iters} steps "
+                             f"{st.reason.name} on {st.soln.device} (JAX "
+                             f"{steps})")
+        phase(27, f"FuncAdapter1D {key}: {st.iters} steps "
+                  f"{st.reason.name} (JAX {steps}), x = {float(st.soln[0])!r}")
+    out = {}
+    for precision, steps in BRATU_STEPS.items():
+        prob = pt.problems.Bratu2D(m=BRATU_M, alpha=0.5)
+        inner = pt.PCG(pt.CommonSolverArgs(maxiter=500, tau=1e-12),
+                       precond=pt.AMG(num_iters=5, num_levels=2),
+                       precision=precision)
+        log = []
+        reset_launches()
+        st, wall = timed(lambda: pt.NewtonSolver(
+            pt.SolverConfig(maxiter=30, tau=1e-12),
+            solver=inner_log(inner, log), min_lin_tol=1e-6,
+            freeze_prec=True).solve(
+                prob, torch.zeros(prob.n, dtype=torch.float64)))
+        out[f"phase 27 {precision}"] = by_dtype(("K1",))
+        r0 = float(np.linalg.norm(bratu_host_f(prob, np.zeros(prob.n))))
+        Fn = float(np.linalg.norm(bratu_host_f(prob, st.soln.cpu())))
+        newton_gate(f"phase 27 Bratu {precision}", st, steps, r0, Fn)
+        if st.soln.device.type != device or not st.success:
+            raise SystemExit(f"phase 27: {st}")
+        phase(27, f"Bratu2D(m={BRATU_M}) Newton + PCG(maxiter=500, tau="
+                  f"1e-12) + AMG(num_iters=5, num_levels=2), precision="
+                  f"{precision!r}, freeze_prec: {st.iters} steps "
+                  f"{st.reason.name} (JAX {steps}), host ||F|| {Fn:.3e} <= "
+                  f"{r0 * 1e-12 + 1e-12:.3e}; inner iterations "
+                  f"{[it for it, _ in log]}; {wall:.3f} s; launches "
+                  f"{out[f'phase 27 {precision}']} | {card}")
+    return out
+
+
+def newton_large(device, m=BRATU_LARGE_M, levels=BRATU_LARGE_LEVELS,
+                 runs=3):
+    """Phase 28: benchmarks/bratu_large.py::run_ours at m = 1023 on the
+    card: Bratu2DHostOuter (longdouble F on the host), Newton tau = 1e-12,
+    min_lin_tol = 1e-6, freeze_prec, u0 = 1 in longdouble; the inner PCG
+    at mixed precision (maxiter 400) preconditioned by two V-cycles of the
+    6-level grid GMG with Jacobi smoothing, probed on the card from the f32
+    Jacobian.  Setup, the cold solve and the median of ``runs`` steady
+    solves; the inner iterations per Newton step; the host share of the
+    wall.  Returns K1's and K6's launches by dtype (one steady solve)."""
+    import pysolvers_tpu_torch as pt
+    card = card_line()
+    prob, setup_s = timed(lambda: pt.problems.Bratu2DHostOuter(
+        pt.problems.Bratu2D(m=m, alpha=0.5)))
+    base = prob.prob
+    spent = {"F": [0, 0.0], "J": [0, 0.0]}
+
+    def timed_eval(fn, key):
+        def call(u):
+            out, w = timed(lambda: fn(u))
+            spent[key][0] += 1
+            spent[key][1] += w
+            return out
+        return call
+    prob.evalF = timed_eval(prob.evalF, "F")
+    prob.evalJ = timed_eval(prob.evalJ, "J")
+    u0 = np.ones(prob.n, dtype=np.longdouble)
+    r0 = float(np.linalg.norm(bratu_host_f(base, u0)))
+
+    def newton_once():
+        log = []
+        for v in spent.values():
+            v[:] = [0, 0.0]
+        inner = pt.PCG(pt.CommonSolverArgs(maxiter=400, tau=1e-12),
+                       precond=pt.GMGPreconditionerType(
+                           dims=(m, m), num_iters=2, num_levels=levels,
+                           smoother="jacobi"),
+                       precision="mixed")
+        st, wall = timed(lambda: pt.NewtonSolver(
+            pt.SolverConfig(maxiter=30, tau=1e-12),
+            solver=inner_log(inner, log), min_lin_tol=1e-6,
+            freeze_prec=True).solve(prob, u0))
+        Fn = float(np.linalg.norm(bratu_host_f(base, st.soln)))
+        newton_gate("phase 28", st, BRATU_LARGE_STEPS, r0, Fn)
+        if not isinstance(st.soln, np.ndarray) or \
+                st.soln.dtype != np.longdouble:
+            raise SystemExit("phase 28: the iterate left its longdouble")
+        return st, wall, Fn, log, {k: tuple(v) for k, v in spent.items()}
+
+    mem0 = peak_reset()
+    st, cold_s, Fn, log, host = newton_once()
+    walls = []
+    for i in range(runs):
+        if i == runs - 1:
+            reset_launches()
+        st, w, Fn, log, host = newton_once()
+        walls.append(w)
+    launches = by_dtype(("K1", "K6"))
+    if launches["K1 f32"] <= 0 or launches["K1 f64"] <= 0:
+        raise SystemExit(f"phase 28: launches {launches}")
+    med = statistics.median(walls)
+    inner_s = sum(w for _, w in log)
+    other = walls[-1] - inner_s - host["F"][1] - host["J"][1]
+    phase(28, f"Bratu2DHostOuter(Bratu2D(m={m})) n={prob.n}, Newton "
+              f"(tau=1e-12, min_lin_tol=1e-6, freeze_prec, u0=1 longdouble)"
+              f" + PCG(maxiter=400, tau=1e-12, precision='mixed') + GMG"
+              f"{levels}(grid, jacobi, num_iters=2, probed on the card): "
+              f"{st.iters} steps {st.reason.name} (JAX "
+              f"{BRATU_LARGE_STEPS}), host ||F|| {Fn:.3e} <= "
+              f"{r0 * 1e-12 + 1e-12:.3e}; setup {setup_s:.3f} s, cold "
+              f"solve {cold_s:.3f} s, steady {med:.3f} s (the median of "
+              f"{[round(w, 3) for w in walls]}); inner iterations per step "
+              f"{[it for it, _ in log]}; launches (one steady solve) "
+              f"{launches}; peak device memory {peak_above(mem0):.3f} GB "
+              f"above the phase's start | "
+              f"{card}")
+    phase(28, f"host share of the last steady solve ({walls[-1]:.3f} s): "
+              f"longdouble F {host['F'][1]:.3f} s in {host['F'][0]} calls "
+              f"({host['F'][0] - 1} line-search trials), host and device "
+              f"Jacobians {host['J'][1]:.3f} s in {host['J'][0]} calls, "
+              f"inner solves {inner_s:.3f} s ({[round(w, 3) for _, w in log]}"
+              f"), the rest (the copies of p to the host, the numpy "
+              f"updates) {other:.3f} s")
+    return launches
+
+
+def newton_krylov(device, m=NK_M):
+    """Phase 29: newton_krylov_solve on Bratu m = NK_M with
+    tests/test_newton_krylov.py's settings, matrix-free (J·v by
+    torch.func.jvp through K1's autograd.Function: two K1 launches per
+    J·v, the tangent's counted apart) and with the explicit DIA Jacobian
+    and its Jacobi preconditioner (K1 per product).  Returns K1's launches
+    by dtype per run."""
+    import torch
+    import pysolvers_tpu_torch as pt
+    from pysolvers_tpu_torch.ops import spmv
+    card = card_line()
+    out = {}
+    prob = pt.problems.Bratu2D(m=m)
+    x0 = torch.zeros(prob.n, dtype=torch.float64, device=device)
+    # the first torch.func.jvp of the process sets up its machinery
+    _, first_s = timed(lambda: torch.func.jvp(prob.eval_f, (x0,), (x0,)))
+    _, second_s = timed(lambda: torch.func.jvp(prob.eval_f, (x0,), (x0,)))
+    phase(29, f"the process's first J·v by torch.func.jvp {first_s:.3f} s, "
+              f"the second {1e3 * second_s:.3f} ms")
+    for name, kw in (("jvp", dict(inner_maxiter=300)),
+                     ("explicit J + Jacobi", dict(
+                         inner_maxiter=500, eval_j=prob.eval_j_dev,
+                         precond_from_j=prob.jacobi_precond))):
+        reset_launches()
+        (x, st), wall = timed(lambda: pt.nonlinear.newton_krylov_solve(
+            prob.eval_f, x0, tau=1e-12, maxiter=30, method="cg",
+            min_lin_tol=1e-8, **kw))
+        jvps = spmv.dia_spmv_jvp_launches
+        out[f"phase 29 {name}"] = by_dtype(("K1",))
+        k_ref, inner_ref, reason_ref = NK_COUNTS[name]
+        r0 = float(np.linalg.norm(bratu_host_f(prob, np.zeros(prob.n))))
+        Fn = float(np.linalg.norm(bratu_host_f(prob, x.cpu())))
+        # each inner CG makes one J·v per iteration and one at its start
+        want_jvps = st.inner_total + st.k if name == "jvp" else 0
+        if (st.k != k_ref or pt.StopReason(st.reason).name != reason_ref
+                or abs(st.inner_total - inner_ref) > ITERS_SLACK * inner_ref
+                or not Fn <= r0 * 1e-12 + 1e-12 or jvps != want_jvps
+                or x.device.type != device):
+            raise SystemExit(f"phase 29 {name}: k={st.k} inner="
+                             f"{st.inner_total} reason={st.reason} (JAX "
+                             f"{NK_COUNTS[name]}), ||F|| {Fn:.3e}, tangent "
+                             f"launches {jvps} (want {want_jvps})")
+        phase(29, f"newton_krylov_solve(Bratu2D(m={m}) n={prob.n}, "
+                  f"method='cg', tau=1e-12, min_lin_tol=1e-8, {name}): "
+                  f"k={st.k} inner_total={st.inner_total} "
+                  f"{pt.StopReason(st.reason).name} (JAX {NK_COUNTS[name]}),"
+                  f" host ||F|| {Fn:.3e}; {wall:.3f} s; launches "
+                  f"{out[f'phase 29 {name}']}, of K1 for J·v tangents "
+                  f"{jvps} | {card}")
+    return out
+
+
+@contextlib.contextmanager
+def inner_passes():
+    """The per-column iterations of each f32 ``gmres_solve_multi`` that
+    solve()'s mixed route runs inside ``ir_solve_multi``, one tuple per
+    refinement pass."""
+    import torch
+    mod = sys.modules["pysolvers_tpu_torch.solve"]
+    real = mod.gmres_solve_multi
+    passes = []
+
+    def recorded(mm, R, **kw):
+        X, st, h = real(mm, R, **kw)
+        if R.dtype == torch.float32:
+            passes.append(tuple(int(k) for k in st.k))
+        return X, st, h
+    mod.gmres_solve_multi = recorded
+    try:
+        yield passes
+    finally:
+        mod.gmres_solve_multi = real
+
+
+def multi_rhs(device):
+    """Phase 30: solve(A, B) with k = 8 right-hand sides on phase 5's
+    fd_laplacian_2d(150) (n = 22,500, where "auto" is PCG + AMG(2, 2) or,
+    for GMRES, ILUT by K8): lockstep CG and GMRES (gmres_solve_multi) at
+    native and mixed precision (mixed GMRES unrestarted, solve()'s default,
+    and restarted at 60), the column loop for orthog='cgs2', the direct
+    solve at n = 484, and an unstructured fem_poisson_2d_unstructured(151)
+    (n = 22,500) at mixed precision, whose f32 and f64 operators are
+    RCM-ordered BWS packs (K2 per column).  Gates: CONVERGED, each column's
+    host residual <= 1e-9, the JAX package's iterations within ITERS_SLACK
+    (unrestarted mixed GMRES: MIXED_GMRES_PASS1 and MIXED_GMRES_TOTALS).
+    The native routes, the direct
+    solve and the FEM route beside k single solve() calls.  Returns the
+    launches by dtype per route."""
+    import pysolvers_tpu_torch as pt
+    card = card_line()
+
+    def block(H):
+        X = np.random.default_rng(2).random((MULTI_K, H.shape[0]))
+        return np.stack([H.matvec(x) for x in X], axis=1)
+
+    H = pt.problems.fd_laplacian_2d(MULTI_M)
+    Hd = pt.problems.fd_laplacian_2d(DIRECT_M)
+    Hf = pt.problems.fem_poisson_2d_unstructured(FEM_MULTI_M, seed=3)
+    routes = (("cg", H, dict(method="cg")),
+              ("gmres", H, dict(method="gmres")),
+              ("cg mixed", H, dict(method="cg", precision="mixed")),
+              ("gmres mixed", H, dict(method="gmres", precision="mixed")),
+              # beside it, restarted as the factories' mixed GMRES
+              ("gmres mixed restart=60", H, dict(
+                  method="gmres", precision="mixed", restart=60)),
+              ("gmres cgs2", H, dict(method="gmres", orthog="cgs2")),
+              ("direct", Hd, dict(method="direct")),
+              ("fem cg jacobi mixed", Hf, dict(method="cg", precond="jacobi",
+                                               precision="mixed")))
+    out = {}
+    for name, A, kw in routes:
+        B = block(A)
+        reset_launches()
+        with HostReads() as reads, inner_passes() as passes:
+            st, wall = timed(lambda: pt.solve(A, B, tau=1e-10, **kw))
+        launches = by_dtype(("K1", "K2", "K8"))
+        out[f"phase 30 {name}"] = launches
+        X = st.soln
+        if (st.reason.name != "CONVERGED" or X.device.type != device
+                or tuple(X.shape) != B.shape):
+            raise SystemExit(f"phase 30 {name}: {st}")
+        Xh = X.cpu().numpy()
+        resid = max(host_residual(A, Xh[:, j], B[:, j])
+                    for j in range(MULTI_K))
+        if name == "gmres mixed":
+            ref = MIXED_GMRES_TOTALS
+            pass1 = passes[0] if passes else ()
+            counts_ok = len(pass1) == MULTI_K and all(
+                abs(k - r) <= ITERS_SLACK * r
+                for k, r in zip(pass1, MIXED_GMRES_PASS1)) and any(
+                abs(st.iters - r) <= ITERS_SLACK * r for r in ref)
+        else:
+            ref = MULTI_ITERS[name]
+            counts_ok = abs(st.iters - ref) <= ITERS_SLACK * ref
+        if resid > RESID_LIMIT or not counts_ok:
+            raise SystemExit(f"phase 30 {name}: iters={st.iters} (JAX "
+                             f"{ref}), inner passes {passes}, max column "
+                             f"resid {resid:.3e}")
+        needs = {"gmres": ("K8 f64",), "gmres cgs2": ("K8 f64",),
+                 "gmres mixed": ("K8 f32",),
+                 "gmres mixed restart=60": ("K8 f32",),
+                 "fem cg jacobi mixed": ("K2 f32", "K2 f64")}
+        if any(launches[k] <= 0 for k in needs.get(name, ())):
+            raise SystemExit(f"phase 30 {name}: launches {launches}")
+        if name in ("cg mixed", "gmres mixed", "gmres mixed restart=60",
+                    "gmres cgs2"):
+            # the column loop is k single solves sharing one setup; the
+            # mixed GMRES singles (thousands of f32 steps each) would take
+            # longer than the rest of the phase; the mixed CG singles
+            # repeat the native ones' eight host SA setups (6 s)
+            singles_text = "single solve() calls not run"
+        else:
+            singles, single_s = timed(lambda: [
+                pt.solve(A, B[:, j], tau=1e-10, **kw)
+                for j in range(MULTI_K)])
+            if not all(s.success for s in singles):
+                raise SystemExit(f"phase 30 {name}: a single solve failed")
+            singles_text = (f"against {single_s:.3f} s for {MULTI_K} single "
+                            f"solve() calls (iters "
+                            f"{[s.iters for s in singles]})")
+        phase(30, f"solve(n={A.shape[0]}, B (n, {MULTI_K}), tau=1e-10, "
+                  f"{', '.join(f'{k}={v!r}' for k, v in kw.items())}): "
+                  f"iters={st.iters} (JAX {ref}) reason={st.reason.name}"
+                  f"{f', inner passes {passes}' if passes else ''}, "
+                  f"max column host rel resid {resid:.3e}; {wall:.3f} s "
+                  f"{singles_text}; launches {launches}; host reads "
+                  f"{reads.n} | {card}")
+    return out
+
+
 def build_bws_variant(spec):
     """(spec, library, ptxas registers) of a copy of csrc/bws_spmv.cu with
     the sizes of ``spec`` ("THREADS,UNROLL,EVICT_FIRST"), built under
@@ -2798,6 +3242,13 @@ def main():
     p13_counts = p13["counts"]
     del p13
     p25 = mixed_short("cuda")
+    t27 = time.perf_counter()
+    with no_twin_on_cuda():
+        p27 = newton_small("cuda")
+        p28 = newton_large("cuda")
+        p29 = newton_krylov("cuda")
+        p30 = multi_rhs("cuda")
+    phase(30, f"phases 27-30 took {time.perf_counter() - t27:.1f} s")
     profile_unstructured(path, fine32, rec_bws)
     del path, fine32
     k1_p16, k8_p16 = p16["K1"], p16["K8"]
@@ -2816,12 +3267,17 @@ def main():
                             "phase 18 cgs2": p18["cgs2"]["K1"],
                             **mixed_path(p21, "K1"),
                             **mixed_path({"phase 24": p24,
-                                          "phase 25": p25}, "K1")}),
+                                          "phase 25": p25}, "K1"),
+                            **mixed_path(p27, "K1"),
+                            **mixed_path({"phase 28": p28}, "K1"),
+                            **mixed_path(p29, "K1"),
+                            **mixed_path(p30, "K1")}),
         dict(name="bws_spmv", route="cuda", source=src + "bws_spmv.cu",
              replaces="pysolvers_tpu/ops/bws_spmv.py:212",
              launches=counts["K2"], **rec_bws["K2"],
              path_launches={"phase 16b": p16b["K2"],
-                            **mixed_path({"phase 22": p22}, "K2")}),
+                            **mixed_path({"phase 22": p22}, "K2"),
+                            **mixed_path(p30, "K2")}),
         # K3 serves bws_spmv_by_class, which no solve path calls: phase 7
         # checks that it made no launch there
         dict(name="bws_spmv_classes", route="cuda",
@@ -2846,17 +3302,21 @@ def main():
              source=src + "grid_dia_spmv.cu",
              replaces="pysolvers_tpu/ops/grid_spmv.py:154",
              launches=p13_counts["K6"], **rec_k6,
-             path_launches=mixed_path({"phase 24": p24}, "K6")),
+             # phase 28's grids (m <= 1023) are below GRID_KERNEL_MIN_M:
+             # flat DIA there, K1
+             path_launches=mixed_path({"phase 24": p24,
+                                       "phase 28": p28}, "K6")),
         # K8's own main path is phase 16 (two launches per ILUT apply); the
         # other paths that run it by dtype
         dict(name="block_trisolve", route="cuda",
              source=src + "block_trisolve.cu",
              replaces="pysolvers_tpu/ops/block_trisolve.py:349",
              launches=k8_p16["K8 f64"], **rec_k8,
-             path_launches=mixed_path({"phase 16": k8_p16,
-                                       "phase 17": p17["K8"],
-                                       "phase 20 ic": k8_p20,
-                                       "phase 25": p25}, "K8")),
+             path_launches={**mixed_path({"phase 16": k8_p16,
+                                          "phase 17": p17["K8"],
+                                          "phase 20 ic": k8_p20,
+                                          "phase 25": p25}, "K8"),
+                            **mixed_path(p30, "K8")}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,11 @@ else, on the CPU, an EllMatrix; the f64 oracle is the same format built in
 f64 from the host matrix, and each pass is checked on the host by the
 exact f64 product.  Preconditioners are formed on the f32 host matrix.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP slice):
-``mesh=`` (slice 12) and multi-RHS solves (slice 10).  Eager PyTorch needs
+Without a mesh the factories take one right-hand side: a 2-D b raises a
+ValueError that names ``solve(A, B)``, ``cg_solve_multi`` and
+``gmres_solve_multi`` (the JAX package's factories do the same without
+``mesh=``).  Not ported: ``mesh=`` (slice 12, ``NotImplementedError``).
+Eager PyTorch needs
 no compiled-graph cache, so the JAX solver's identity-keyed jit caches are
 gone; the preconditioner freeze semantics stay.  ``DefaultDirectSolver``
 has no host-LAPACK fallback (the JAX package's workaround for TPU runtimes
@@ -100,6 +103,73 @@ def _bws_route(device) -> bool:
     ``_bws_backend()`` on its accelerator.  Tests monkeypatch it to run
     that route on the CPU, through K2's twin."""
     return torch.device(device).type == "cuda"
+
+
+def mixed_operators(A_host: Optional[HostCSR], A_dev, dev) -> dict:
+    """The mixed route's operators on device ``dev`` (JAX
+    ``api.py::_solve_mixed``): ``A32``, the f32 inner operator — a DIA
+    device matrix cast, else DIA where ``DiaMatrix.is_profitable``, else on
+    CUDA the RCM-ordered BWS pack (``perm``/``iperm`` then give its
+    ordering, which ``Hp32`` and the oracle share), else ELL; ``A64``, the
+    f64 oracle of the same format (an f64 DIA device matrix is its own
+    oracle, so a Newton Jacobian is not rebuilt from the host); ``mv_hi``,
+    the exact host f64 product; ``Hp32``, the f32 host matrix the
+    preconditioner is formed on (None without a host matrix)."""
+    mx = dict(perm=None, iperm=None, A64=None)
+    if isinstance(A_dev, DiaMatrix):
+        mx["A32"] = (A_dev if A_dev.dtype == torch.float32 else
+                     dataclasses.replace(A_dev, diags=A_dev.diags.float()))
+        if A_dev.dtype == torch.float64:
+            mx["A64"] = A_dev
+    elif A_host is None:
+        raise ValueError("mixed-precision solve needs a HostCSR matrix "
+                         "(or a DIA device matrix)")
+    elif DiaMatrix.is_profitable(A_host):
+        mx["A32"] = DiaMatrix.from_host_csr(A_host, dtype=np.float32,
+                                            device=dev)
+    elif _bws_route(dev):
+        # the RCM-ordered f32 BWS pack (K2); the preconditioner, b and
+        # the f64 oracle take its ordering
+        arrs = pack_arrays(A_host, np.float32, use_rcm=True)
+        mx["A32"] = BwsMatrix.from_numpy(**arrs, device=dev)
+        perm = arrs["perm"].astype(np.int64)
+        A_host = A_host.permute_symmetric(perm)
+        mx.update(perm=perm, iperm=mx["A32"].iperm.long())
+    else:
+        mx["A32"] = EllMatrix.from_host_csr(A_host, dtype=np.float32,
+                                            device=dev)
+    if A_host is not None:
+        mx["mv_hi"] = A_host.matvec
+        mx["Hp32"] = HostCSR(A_host.indptr, A_host.indices,
+                             A_host.data.astype(np.float32),
+                             A_host.shape)
+        # the f64 oracle, from the f64 host data
+        A32 = mx["A32"]
+        if mx["A64"] is None:
+            if isinstance(A32, BwsMatrix):
+                mx["A64"] = BwsMatrix.from_host_csr(
+                    A_host, dtype=np.float64, use_rcm=False,
+                    group_rows=A32.group_rows, gt=A32.gt, device=dev)
+            elif DiaMatrix.is_profitable(A_host):
+                mx["A64"] = DiaMatrix.from_host_csr(
+                    A_host, dtype=np.float64, device=dev)
+            else:
+                mx["A64"] = EllMatrix.from_host_csr(
+                    A_host, dtype=np.float64, device=dev)
+    else:
+        # a DIA device matrix alone: host residuals from its diagonals
+        diags = A_dev.diags.cpu().numpy()
+        offsets, (n, m) = A_dev.offsets, A_dev.shape
+
+        def mv_hi(v):
+            y = np.zeros(n, dtype=np.result_type(v, np.float64))
+            for d, off in enumerate(offsets):
+                i = np.arange(max(0, -off), min(n, m - off))
+                y[i] += diags[d, i] * v[i + off]
+            return y
+
+        mx.update(mv_hi=mv_hi, Hp32=None)
+    return mx
 
 
 # ---------------------------------------------------------------------------
@@ -244,62 +314,8 @@ class IterativeLinearSolver(LinearSolver):
             A_host, A_dev = self._split_matrix(A)
         if self.matrix_frozen() and self._mx is not None:
             return self._finish_mixed(self._mx, b, method, restart)
-        dev = self.device
-        mx = dict(perm=None, iperm=None, A64=None)
-        if isinstance(A_dev, DiaMatrix):
-            mx["A32"] = (A_dev if A_dev.dtype == torch.float32 else
-                         dataclasses.replace(A_dev, diags=A_dev.diags.float()))
-        elif A_host is None:
-            raise ValueError("mixed-precision solve needs a HostCSR matrix "
-                             "(or a DIA device matrix)")
-        elif DiaMatrix.is_profitable(A_host):
-            mx["A32"] = DiaMatrix.from_host_csr(A_host, dtype=np.float32,
-                                                device=dev)
-        elif _bws_route(dev):
-            # the RCM-ordered f32 BWS pack (K2); the preconditioner, b and
-            # the f64 oracle take its ordering
-            arrs = pack_arrays(A_host, np.float32, use_rcm=True)
-            mx["A32"] = BwsMatrix.from_numpy(**arrs, device=dev)
-            perm = arrs["perm"].astype(np.int64)
-            A_host = A_host.permute_symmetric(perm)
-            mx.update(perm=perm, iperm=mx["A32"].iperm.long())
-        else:
-            mx["A32"] = EllMatrix.from_host_csr(A_host, dtype=np.float32,
-                                                device=dev)
-        if A_host is not None:
-            mx["mv_hi"] = A_host.matvec
-            mx["Hp32"] = HostCSR(A_host.indptr, A_host.indices,
-                                 A_host.data.astype(np.float32),
-                                 A_host.shape)
-            # the f64 oracle, from the f64 host data
-            A32 = mx["A32"]
-            if isinstance(A32, BwsMatrix):
-                mx["A64"] = BwsMatrix.from_host_csr(
-                    A_host, dtype=np.float64, use_rcm=False,
-                    group_rows=A32.group_rows, gt=A32.gt, device=dev)
-            elif DiaMatrix.is_profitable(A_host):
-                mx["A64"] = DiaMatrix.from_host_csr(A_host, dtype=np.float64,
-                                                    device=dev)
-            else:
-                mx["A64"] = EllMatrix.from_host_csr(A_host, dtype=np.float64,
-                                                    device=dev)
-        else:
-            # a DIA device matrix alone: host residuals from its diagonals
-            diags = A_dev.diags.cpu().numpy()
-            offsets, (n, m) = A_dev.offsets, A_dev.shape
-
-            def mv_hi(v):
-                y = np.zeros(n, dtype=np.result_type(v, np.float64))
-                for d, off in enumerate(offsets):
-                    i = np.arange(max(0, -off), min(n, m - off))
-                    y[i] += diags[d, i] * v[i + off]
-                return y
-
-            mx.update(mv_hi=mv_hi, Hp32=None)
-            if A_dev.dtype == torch.float64:
-                mx["A64"] = A_dev
-        self._mx = mx
-        return self._finish_mixed(mx, b, method, restart)
+        self._mx = mixed_operators(A_host, A_dev, self.device)
+        return self._finish_mixed(self._mx, b, method, restart)
 
     def _finish_mixed(self, mx, b, method, restart) -> SolveStatus:
         """The preconditioner on the f32 host matrix, then ``ir_solve_dd``
@@ -372,11 +388,19 @@ def _check_bws_operator(A: BwsMatrix, device):
                          "matrix first)")
 
 
+def _refuse_block_rhs(b, solver: str):
+    """The factories take one right-hand side (JAX ``api.py``'s message,
+    without the mesh route, which is not ported)."""
+    if np.ndim(b) == 2:
+        raise ValueError(
+            "factory solvers take a 1-D right-hand side here; for k RHS use "
+            "pysolvers_tpu_torch.solve(A, B) (blocked multi-RHS) or "
+            f"linear.{solver}_solve_multi")
+
+
 class PCGSolver(IterativeLinearSolver):
     def solve(self, A, b) -> SolveStatus:
-        if np.ndim(b) == 2:
-            raise NotImplementedError("multi-RHS solves are not ported yet "
-                                      "(ROADMAP slice 10)")
+        _refuse_block_rhs(b, "cg")
         if self.precision == "mixed":
             return self._solve_mixed(A, b, "cg")
         A_host, A_dev = self._split_matrix(A)
@@ -437,9 +461,7 @@ class GMRESSolver(IterativeLinearSolver):
         self.orthog = orthog
 
     def solve(self, A, b) -> SolveStatus:
-        if np.ndim(b) == 2:
-            raise NotImplementedError("multi-RHS solves are not ported yet "
-                                      "(ROADMAP slice 10)")
+        _refuse_block_rhs(b, "gmres")
         if self.precision == "mixed":
             # the GMRES options ride in the method string (refine._one_solve);
             # the inner solve restarts every 60 steps unless told otherwise

@@ -1,9 +1,10 @@
-"""Krylov solvers: preconditioned CG (single- and multi-RHS), GMRES(m),
-Richardson, and CG with f64 residual replacement.
+"""Krylov solvers: preconditioned CG (single- and multi-RHS), GMRES(m)
+(single- and multi-RHS), Richardson, and CG with f64 residual replacement.
 
-Port of ``richardson_solve``, ``cg_solve``, ``cg_solve_multi_rows``,
-``_cg_lockstep``, ``cg_lockstep_rr``, ``cg_solve_rr`` and ``gmres_solve``
-in ``pysolvers_tpu/linear/krylov.py`` (reference
+Port of ``richardson_solve``, ``cg_solve``, ``cg_solve_multi``,
+``cg_solve_multi_rows``, ``_cg_lockstep``, ``cg_lockstep_rr``,
+``cg_solve_rr``, ``gmres_solve`` and ``gmres_solve_multi`` in
+``pysolvers_tpu/linear/krylov.py`` (reference
 PySolvers/Linear/PCGSolver.py:64-145: right-preconditioned CG with
 breakdown checks on u·r and p·Ap, convergence on ||r|| <= tau*||b||,
 trivial-b shortcut; GMRESSolver.py:27-180: right-preconditioned GMRES with
@@ -24,9 +25,13 @@ flags per iteration.  Every such read goes through ``_host``, which tests
 count.  Capturing the iteration in a CUDA graph, and checking the reason
 less often, is later work (ROADMAP slice 3).
 
-Not ported: the column layout ``cg_solve_multi`` and ``gmres_solve_multi``
-(slice 10), and ``cg_solve_multi_tiles`` — it carried the Krylov state in
-the TPU kernel's halo-tiled layout, which the port's K5 does not need (it
+The column-layout multi-RHS solvers read the host once per iteration as
+well: ``cg_solve_multi`` is the lockstep engine with per-column dots, and
+``gmres_solve_multi`` reads the new Hessenberg columns of all right-hand
+sides and rotates them on the host, as ``gmres_solve`` does for one.
+
+Not ported: ``cg_solve_multi_tiles`` — it carried the Krylov state in the
+TPU kernel's halo-tiled layout, which the port's K5 does not need (it
 reads the row layout directly; ``cg_lockstep_rr`` runs on that layout
 too).
 """
@@ -160,6 +165,21 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
     return x, KrylovState(k, resid, reason), history
 
 
+def cg_solve_multi(matmat: Callable, B: torch.Tensor,
+                   X0: Optional[torch.Tensor] = None, *, maxiter: int = 100,
+                   tau: float = 1e-8, precond: Optional[Callable] = None):
+    """Blocked multi-RHS preconditioned CG in COLUMN layout: the k columns
+    of ``B`` (n, k) advance in lockstep, one operator pass for all of them
+    per iteration (``matmat`` maps (n, k) -> (n, k), e.g.
+    ``lambda V: ops.matmat(A, V)``).  Returns (X, KrylovState of per-column
+    tensors, None).  Per column the semantics of ``cg_solve``: finished
+    columns are frozen, breakdowns on u·r / p·Ap, ||r_j|| <= tau·||b_j||.
+    ``precond`` maps an (n, k) block to its columns' applies."""
+    return _cg_lockstep(matmat, B, maxiter=maxiter, tau=tau, precond=precond,
+                        dot=lambda a, c: torch.sum(a * c, dim=0),
+                        bc=lambda s: s[None, :], n_rhs=B.shape[1], X0=X0)
+
+
 def cg_solve_multi_rows(matmat_rows: Callable, B: torch.Tensor, *,
                         maxiter: int = 100, tau: float = 1e-8,
                         precond: Optional[Callable] = None):
@@ -177,22 +197,23 @@ def cg_solve_multi_rows(matmat_rows: Callable, B: torch.Tensor, *,
 
 def _cg_lockstep(matmat: Callable, B: torch.Tensor, *, maxiter: int,
                  tau: float, precond: Optional[Callable],
-                 dot: Callable, bc: Callable, n_rhs: int):
+                 dot: Callable, bc: Callable, n_rhs: int,
+                 X0: Optional[torch.Tensor] = None):
     """Layout-generic lockstep CG engine: ``dot`` reduces each operand to
     a per-RHS (k,) vector, ``bc`` broadcasts per-RHS scalars back over the
-    block layout.  x0 = 0.  The loop runs until no RHS is RUNNING, one
-    host read per iteration."""
+    block layout.  x0 = ``X0`` (None: zero).  The loop runs until no RHS
+    is RUNNING, one host read per iteration."""
     M = precond or (lambda V: V)
     norm = lambda V: torch.sqrt(dot(V, V))    # noqa: E731
     codes = {r: torch.tensor(int(r), dtype=torch.int32, device=B.device)
              for r in StopReason}
 
     tols = tau * norm(B)
-    R = B
+    R = B if X0 is None else B - matmat(X0)
     P = M(R)
     u_dot_r = dot(P, R)
     resid = norm(R)
-    X = torch.zeros_like(B)
+    X = torch.zeros_like(B) if X0 is None else X0
     k = torch.zeros(n_rhs, dtype=torch.int32, device=B.device)
     reason = torch.where(resid <= tols, codes[StopReason.CONVERGED],
                          torch.where(u_dot_r == 0, codes[StopReason.BREAKDOWN],
@@ -643,3 +664,126 @@ def gmres_solve(matvec: Callable, b: torch.Tensor,
         reason = StopReason.TRUE_RESID_MISMATCH
     return (x, KrylovState(total, true_resid, int(reason)),
             torch.from_numpy(history))
+
+
+def gmres_solve_multi(matmat: Callable, B: torch.Tensor, *,
+                      maxiter: int = 100, tau: float = 1e-8,
+                      precond: Optional[Callable] = None,
+                      restart: Optional[int] = None):
+    """Blocked multi-RHS right-preconditioned GMRES: the k columns of ``B``
+    (n, k) run independent Arnoldi recurrences in lockstep, one operator
+    pass (``matmat``, (n, k) -> (n, k)) and one preconditioner apply
+    (``precond``, the same) for all of them per step.  Returns (X,
+    KrylovState of per-column CPU tensors, None): iterations, true residual
+    norms and stop reasons.
+
+    The JAX package's semantics (``gmres_solve_multi``): MGS on the device
+    for all columns at once; a column that converges (or breaks down
+    luckily) freezes its Hessenberg, Givens and right-hand-side state and
+    writes zero basis vectors, so it drops out of the solution.  A cycle
+    ends when no column runs or after m = min(restart or maxiter, maxiter)
+    steps; then every column takes its correction, its TRUE residual
+    B − A·X is computed, and columns above tau·||b_j|| with budget left run
+    another cycle from their residual (a shared basis reset) — an
+    optimistic implicit residual reactivates its column instead of ending
+    it.
+
+    One host read per step: the new Hessenberg columns; the rotations, the
+    stop tests and the back substitution run on the host in B's dtype.  One
+    read per cycle of the residual norms (and an upload of the step
+    weights, and of the active columns when they change).
+    """
+    M = precond or (lambda V: V)
+    n, kr = B.shape
+    m = maxiter if restart is None else max(1, min(int(restart), maxiter))
+    dtype, device = B.dtype, B.device
+    np_dt = np.dtype(str(dtype).split(".")[1])
+    cnorm = lambda V: torch.sqrt(torch.sum(V * V, dim=0))  # noqa: E731
+    RUN, CONV = int(StopReason.RUNNING), int(StopReason.CONVERGED)
+    MAXIT = int(StopReason.MAXITER)
+
+    bn = cnorm(B)
+    b_norms, tols = _host(torch.stack([bn, tau * bn]))
+    Q = torch.zeros((m + 1, n, kr), dtype=dtype, device=device)
+    X = torch.zeros_like(B)
+    R = B
+    total = np.zeros(kr, dtype=np.int64)
+    resid = b_norms
+    reason = np.where(b_norms <= tols, CONV, RUN)
+    while (reason == RUN).any():
+        # one lockstep Arnoldi cycle from the per-column residuals R
+        beta_t = cnorm(R)
+        beta = _host(beta_t)
+        torch.div(R, torch.where(beta_t > 0, beta_t, 1.0), out=Q[0])
+        H = np.zeros((m + 1, m, kr), dtype=np_dt)
+        g = np.zeros((m + 1, kr), dtype=np_dt)
+        g[0] = beta
+        cs = np.zeros((m, 2, kr), dtype=np_dt)
+        # columns already done enter frozen; CONVERGED is the in-cycle
+        # freeze code — the outer loop sets the final reasons
+        cyc = np.where((reason == RUN) & (beta > tols), RUN, CONV)
+        k_col = np.zeros(kr, dtype=np.int64)
+        active = cyc == RUN
+        active_t = torch.as_tensor(active, device=device)
+        k = 0
+        while (cyc == RUN).any() and k < m:
+            if not np.array_equal(active, cyc == RUN):
+                active = cyc == RUN
+                active_t = torch.as_tensor(active, device=device)
+            U = matmat(M(Q[k]))
+            hs = []
+            for j in range(k + 1):
+                hj = torch.sum(Q[j] * U, dim=0)
+                U = torch.addcmul(U, Q[j], hj[None, :], value=-1.0)
+                hs.append(hj)
+            hk1 = cnorm(U)
+            hs.append(hk1)
+            # frozen columns write zero basis vectors (their own recurrence
+            # could overflow, and 0·NaN would poison the solution)
+            torch.where(active_t[None, :],
+                        U / torch.where(hk1 == 0, 1.0, hk1)[None, :],
+                        torch.zeros((), dtype=dtype, device=device),
+                        out=Q[k + 1])
+            h = _host(torch.stack(hs))                    # (k+2, kr)
+            lucky = h[k + 1] == 0
+            for j in range(k):            # the earlier rotations
+                c, s_ = cs[j, 0], cs[j, 1]
+                h[j], h[j + 1] = c * h[j] + s_ * h[j + 1], \
+                    -s_ * h[j] + c * h[j + 1]
+            r = np.hypot(h[k], h[k + 1])
+            safe = r > 0
+            rs = np.where(safe, r, np_dt.type(1))
+            ck = np.where(safe, h[k] / rs, np_dt.type(1))
+            sk = np.where(safe, h[k + 1] / rs, np_dt.type(0))
+            h[k] = ck * h[k] + sk * h[k + 1]
+            h[k + 1] = 0
+            gk = ck * g[k] + sk * g[k + 1]
+            gk1 = -sk * g[k] + ck * g[k + 1]
+            a = active
+            H[: k + 2, k, a] = h[:, a]
+            g[k, a], g[k + 1, a] = gk[a], gk1[a]
+            cs[k, 0, a], cs[k, 1, a] = ck[a], sk[a]
+            k += 1
+            k_col[a] = k
+            res = np.abs(gk1)
+            cyc = np.where(~a, cyc,
+                           np.where((res <= tols) | lucky, CONV,
+                                    np.where(k >= m, MAXIT, RUN)))
+        # per-column back substitution on the triangularized H (columns
+        # that took no step get y = 0), then X += M(Q y)
+        y = np.zeros((k, kr), dtype=np_dt)
+        for j in range(k - 1, -1, -1):
+            s_ = g[j] - np.sum(H[j, :k] * y, axis=0)
+            hjj = H[j, j]
+            y[j] = np.where(j < k_col, s_ / np.where(hjj != 0, hjj, 1), 0)
+        Z = torch.einsum("knc,kc->nc", Q[:k],
+                         torch.as_tensor(y, device=device))
+        X = X + M(Z)
+        R = B - matmat(X)
+        resid = _host(cnorm(R))
+        total += k_col
+        reason = np.where(resid <= tols, CONV,
+                          np.where(total >= maxiter, MAXIT, RUN))
+    return (X, KrylovState(torch.as_tensor(total.astype(np.int32)),
+                           torch.as_tensor(resid),
+                           torch.as_tensor(reason.astype(np.int32))), None)

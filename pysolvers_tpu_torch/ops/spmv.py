@@ -32,8 +32,20 @@ Port of ``pysolvers_tpu/ops/spmv.py``:
   to ``grid_dia_spmv`` (kernel K6, ``ops/grid_spmv.py``), a matrix-free
   operator (``ndim == 2`` and ``@``, ``linear/operator.py``) to its own
   ``@``.  ``matmat`` —
-  the multi-vector dispatch, for ``DiaMatrix``, ``BdiaMatrix`` and dense
-  operators.
+  the multi-vector dispatch: a ``BdiaMatrix`` (K5), a ``DiaMatrix``
+  (``dia_spmm``), an ``EllMatrix`` (``ell_spmm_torch``), a ``BwsMatrix``
+  (K2 once per column, in the pack's ordering) and dense operators.
+* ``ell_spmm_torch`` — Y = A @ X for an EllMatrix by one gather over the
+  rows: the counterpart of the JAX package's ``ell_spmm_xla`` (an XLA
+  op there, not a kernel), on every device.
+
+K1 under ``torch.func.jvp`` (the matrix-free Newton-Krylov J·v,
+``nonlinear/newton_krylov.py``): a transform's wrapped tensor has no data
+pointer for the ctypes call, so ``dia_spmv`` hands it to ``_DiaSpmvFn``, an
+``autograd.Function`` whose forward runs on the unwrapped tensor and whose
+``jvp`` is ``dia_spmv(A, ẋ)`` (SpMV is linear in x): on CUDA a second K1
+launch, on the CPU the twin.  The other kernel wrappers have no such
+Function; a transformed tensor makes their ctypes call raise.
 
 Every kernel wrapper runs its twin for a CPU tensor, and for a CUDA tensor
 launches its kernel or raises — it never falls back.
@@ -46,8 +58,7 @@ layout work: ``bdia_rows_to_tiles``/``bdia_tiles_to_rows``,
 (n_tiles+2, b, k, tile) operand of ``bdia_spmm_tiles`` (Mosaic's VMEM
 windows and XLA's 128-lane padding of a k-minor axis — K5 reads the row
 layout directly with bounds masks), the VMEM tile budget and x windows of
-``bdia_spmv_pallas``.  Still to port: the ELL SpMM ``ell_spmm_xla``
-(ROADMAP slice 10).
+``bdia_spmv_pallas``.
 """
 from __future__ import annotations
 
@@ -69,6 +80,12 @@ dia_spmv_launches = 0
 bdia_spmv_launches = 0
 bdia_spmm_launches = 0
 
+# K1 launches made for the tangent of a ``torch.func.jvp``, counted where
+# K1 launches (each also in dia_spmv_launches)
+dia_spmv_jvp_launches = 0
+
+_functorch_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+
 # K5 holds at most this many right-hand sides in registers per launch
 BDIA_SPMM_MAX_ROWS = 16
 
@@ -85,6 +102,18 @@ def ell_spmv_torch(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     xp[: A.n_cols] = x[: A.n_cols]
     g = torch.index_select(xp, 0, A.cols.reshape(-1)).reshape(A.cols.shape)
     return torch.sum(A.data * g, dim=1)[:n]
+
+
+def ell_spmm_torch(A: EllMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for an (n_cols, k) block X: one gather of X's rows for
+    every slot, summed over the slots (JAX ``ell_spmm_xla``)."""
+    n = A.n_rows
+    Xp = torch.zeros((max(A.n_cols_pad, A.n_cols + 1), X.shape[1]),
+                     dtype=X.dtype, device=X.device)
+    Xp[: A.n_cols] = X[: A.n_cols]
+    g = torch.index_select(Xp, 0, A.cols.reshape(-1)).reshape(
+        *A.cols.shape, X.shape[1])
+    return torch.einsum("nk,nkr->nr", A.data, g)[:n]
 
 
 def dia_spmv_torch(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -116,9 +145,34 @@ def _k1_entry(dtype):
     return fn
 
 
-def dia_spmv(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a DiaMatrix: kernel K1 on CUDA, its twin on the CPU."""
-    global dia_spmv_launches
+class _DiaSpmvFn(torch.autograd.Function):
+    """K1 under ``torch.func`` transforms: the forward runs ``dia_spmv`` on
+    the unwrapped x, the tangent is ``dia_spmv(A, ẋ)`` — on CUDA a second
+    K1 launch, never the twin.  ``tangent`` marks the product as one made
+    for a tangent, so that the launch branch counts it in
+    ``dia_spmv_jvp_launches`` (once per launch, at any nesting depth)."""
+
+    @staticmethod
+    def forward(A, x, tangent):
+        return dia_spmv(A, x, _tangent=tangent)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.A = inputs[0]
+
+    @staticmethod
+    def jvp(ctx, _A_tangent, x_tangent, _flag_tangent):
+        return dia_spmv(ctx.A, x_tangent, _tangent=True)
+
+
+def dia_spmv(A: DiaMatrix, x: torch.Tensor, *,
+             _tangent: bool = False) -> torch.Tensor:
+    """y = A @ x for a DiaMatrix: kernel K1 on CUDA, its twin on the CPU;
+    a tensor wrapped by a ``torch.func`` transform goes through
+    ``_DiaSpmvFn``."""
+    global dia_spmv_launches, dia_spmv_jvp_launches
+    if _functorch_wrapped(x):
+        return _DiaSpmvFn.apply(A, x, _tangent)
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"DIA SpMV takes float32 or float64, got {A.dtype}")
     if x.dtype != A.dtype:
@@ -145,6 +199,8 @@ def dia_spmv(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"K1 (dia_spmv) launch failed: CUDA error {rc}")
     dia_spmv_launches += 1
+    if _tangent:
+        dia_spmv_jvp_launches += 1
     _cuda_build.count_launch("K1", A.dtype)
     return y
 
@@ -324,16 +380,30 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"unknown matrix type {type(A)}")
 
 
+def per_vector(apply, dim: int = 1):
+    """A block apply from a single-vector one: ``apply`` on each vector of
+    the block along ``dim`` (1: the columns of an (n, k) block, 0: the rows
+    of a (k, n) one), stacked back along it.  The JAX package's
+    ``jax.vmap(apply, in_axes=dim, out_axes=dim)``; here one call, with its
+    kernels' launches, per vector (a ctypes launch cannot be mapped)."""
+    return lambda V: torch.stack([apply(V.select(dim, j).contiguous())
+                                  for j in range(V.shape[dim])], dim=dim)
+
+
 def matmat(A, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for a multi-vector X of shape (n, k): a BdiaMatrix (planar
-    ordering, kernel K5), a DiaMatrix (``dia_spmm``) or a dense operator."""
+    ordering, kernel K5), a DiaMatrix (``dia_spmm``), an EllMatrix
+    (``ell_spmm_torch``), a BwsMatrix (K2 once per column, in the pack's
+    ordering; on the CPU its twin), a dense or a matrix-free operator."""
     if isinstance(A, BdiaMatrix):
         return bdia_spmm(A, X)
     if isinstance(A, DiaMatrix):
         return dia_spmm(A, X)
-    if isinstance(A, torch.Tensor):
+    if isinstance(A, EllMatrix):
+        return ell_spmm_torch(A, X)
+    if isinstance(A, BwsMatrix):
+        return per_vector(lambda x: bws_spmv(A, x))(X)
+    if isinstance(A, torch.Tensor) or (getattr(A, "ndim", None) == 2
+                                       and hasattr(A, "__matmul__")):
         return A @ X
-    if isinstance(A, (EllMatrix, BwsMatrix)):
-        raise NotImplementedError(f"matmat on a {type(A).__name__} is not "
-                                  "ported yet (ROADMAP slice 10)")
     raise TypeError(f"unknown matrix type {type(A)}")

@@ -32,18 +32,33 @@ for k right-hand sides ``cg_lockstep_rr`` (K5 for the operator and
 block-Jacobi, f32; K5 f64 for the replacements) or, with the other
 preconditioners, ``ir_solve_multi``.
 
-The others raise ``NotImplementedError`` naming their ROADMAP slice:
-multi-RHS on a HostCSR that is not block-structured and GMRES with
-several right-hand sides at native precision (slice 10) and ``mesh=``
-(slice 12).  None of them falls through to another route.
+k right-hand sides on a HostCSR (``_solve_multi``, b of shape (n, k)):
+native CG runs ``cg_solve_multi`` and native GMRES ``gmres_solve_multi``
+(lockstep restarts), one ``matmat`` per step for all columns (DIA: the
+plain shift-and-FMA over the block; ELL: ``ell_spmm_torch``).  Mixed
+precision runs on the factories' operators (``api.mixed_operators``: DIA
+f32/f64, on CUDA the RCM-ordered BWS packs, K2 once per column, else ELL):
+CG as one ``cg_lockstep_rr`` pass, GMRES as ``ir_solve_multi`` around
+``gmres_solve_multi``.  The JAX package maps the single-vector
+preconditioner over the columns with ``jax.vmap``; a kernel launch cannot
+be mapped so, and the port applies it column by column — k applies, the
+same result.  The direct solve, and GMRES with ``orthog``/``flexible`` or
+a basis above 2³¹ bytes, solve the columns one by one through one solver
+with the matrix and the preconditioner frozen
+(``_solve_multi_column_loop``).
+
+The block lane refuses GMRES with several right-hand sides (the JAX
+package quietly runs CG there).  ``mesh=`` (slice 12) raises
+``NotImplementedError``.  No route falls through to another.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .api import CommonSolverArgs, DefaultDirect, GMRES, PCG
-from .core import SolveStatus, make_status
+from .api import (CommonSolverArgs, DefaultDirect, GMRES, PCG,
+                  as_device_matrix, mixed_operators)
+from .core import SolveStatus, StopReason, make_status
 from .linear.amg import AMGPreconditionerType
 from .linear.block_precond import (BlockChebyshevBdiaPreconditionerType,
                                    BlockJacobiBdiaPreconditionerType,
@@ -51,12 +66,13 @@ from .linear.block_precond import (BlockChebyshevBdiaPreconditionerType,
                                    block_jacobi_bdia_matrix)
 from .linear.ilu import ICPreconditionerType, ILUTPreconditionerType
 from .linear.krylov import (KrylovState, cg_lockstep_rr, cg_solve,
-                            cg_solve_multi_rows, gmres_solve)
+                            cg_solve_multi, cg_solve_multi_rows, gmres_solve,
+                            gmres_solve_multi)
 from .linear.refine import ir_solve_dd, ir_solve_multi
 from .linear.preconditioner import JacobiPreconditionerType, Preconditioner
-from .ops.spmv import bdia_spmm_rows, bdia_spmv
+from .ops.spmv import bdia_spmm_rows, bdia_spmv, matmat, per_vector
 from .sparse.bdia import BdiaMatrix, detect_block_size
-from .sparse.device import numpy_dtype, same_device
+from .sparse.device import numpy_dtype, resolve_device, same_device
 from .sparse.host import HostCSR
 
 
@@ -108,10 +124,10 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
     SolveStatus whose ``soln`` is a tensor on that device, in the caller's
     (node-major) ordering.
 
-    ``A``: a HostCSR, a dense 2-D ndarray or a BdiaMatrix.  ``b``: (n,);
-    (n, k) on the block-DIA lane, which solves the k columns in lockstep
-    (``soln`` is then (n, k), ``iters`` and ``resid`` the largest over the
-    columns, ``reason`` the worst).
+    ``A``: a HostCSR, a dense 2-D ndarray or a BdiaMatrix.  ``b``: (n,) or
+    (n, k); with k columns ``soln`` is (n, k), ``iters`` and ``resid`` the
+    largest over the columns, ``reason`` the worst (the block-DIA lane and
+    CG and GMRES on a HostCSR solve the columns in lockstep).
     ``method``: "auto" | "cg" | "gmres" | "direct".
     ``precond``: "auto" | "none" | "ic" | "ilut" | "amg" | "jacobi"; on a
     BdiaMatrix "auto" (= "bjacobi") | "none" | "bjacobi" | "bcheb" |
@@ -162,11 +178,14 @@ def solve(A, b, *, tau: float = 1e-8, maxiter: int = 1000,
                 maxiter=maxiter, method="cg", precond="auto",
                 precision=precision)
     if b.ndim == 2:
-        raise NotImplementedError("multi-RHS solves of a HostCSR that is not "
-                                  "block-structured are not ported yet "
-                                  "(ROADMAP slice 10)")
+        if b.shape[1] == 0:
+            raise ValueError("solve(A, B): B has zero columns")
+        return _solve_multi(A, b, tau=tau, maxiter=maxiter, method=method,
+                            precond=precond, precision=precision,
+                            device=device, **solver_kwargs)
     if b.ndim != 1:
-        raise ValueError(f"solve() takes b of shape (n,); got {b.shape}")
+        raise ValueError(f"solve() takes b of shape (n,) or (n, k); got "
+                         f"{b.shape}")
 
     if method == "direct":
         return DefaultDirect(device=device).make_solver().solve(A, b)
@@ -277,7 +296,7 @@ def _solve_bdia(A: BdiaMatrix, b, *, tau, maxiter, method,
                 else np.asarray(b)).astype(np.float64)
         if b_np.ndim == 2 and b_np.shape[0] == A.n_rows and b_np.shape[1]:
             return _solve_bdia_multi_mixed(A, b_np, tau=tau, maxiter=maxiter,
-                                           precond=precond, control=control)
+                                           precond=precond)
         if b_np.shape != (A.n_rows,):
             raise ValueError(f"solve(BdiaMatrix) takes b of shape "
                              f"({A.n_rows},) or ({A.n_rows}, k >= 1); got "
@@ -298,9 +317,10 @@ def _solve_bdia(A: BdiaMatrix, b, *, tau, maxiter, method,
         raise ValueError(f"solve(BdiaMatrix) takes b of shape ({A.n_rows},) "
                          f"or ({A.n_rows}, k >= 1); got {tuple(bd.shape)}")
     if method == "gmres":
-        raise NotImplementedError("GMRES with several right-hand sides is "
-                                  "not ported yet (ROADMAP slice 10, "
-                                  "gmres_solve_multi)")
+        # the JAX block lane runs CG here whatever the method says
+        raise ValueError("solve(BdiaMatrix, B) with several right-hand sides "
+                         "runs lockstep CG only: pass method=\"cg\" (the "
+                         "JAX package runs CG for method=\"gmres\" there)")
 
     # lockstep multi-RHS in ROW layout (k, b·nb): one planar RHS per row,
     # K5 for the operator
@@ -313,17 +333,13 @@ def _solve_bdia(A: BdiaMatrix, b, *, tau, maxiter, method,
         pmulti = lambda V: bdia_spmm_rows(M, V)          # noqa: E731
     else:
         papply = _bdia_precond(A, precond)
-        # the single-RHS apply row by row (JAX vmaps it; the kernels'
-        # launches cannot be batched that way)
-        pmulti = (None if papply is None else
-                  lambda V: torch.stack([papply(v) for v in V]))
-    X, st, hist = cg_solve_multi_rows(lambda V: bdia_spmm_rows(A, V), B_rows,
-                                      maxiter=maxiter, tau=tau,
-                                      precond=pmulti)
-    agg = KrylovState(int(st.k.max()), st.resid.max(), int(st.reason.max()))
+        # the single-RHS apply row by row (JAX vmaps it)
+        pmulti = None if papply is None else per_vector(papply, dim=0)
+    X, st, _ = cg_solve_multi_rows(lambda V: bdia_spmm_rows(A, V), B_rows,
+                                   maxiter=maxiter, tau=tau, precond=pmulti)
     # (k, b·nb) planar rows -> node-major (n, k)
     Xn = X.reshape(k, A.b, A.nb).permute(2, 1, 0).reshape(A.nb * A.b, k)
-    return make_status(Xn, agg, control, history=hist)
+    return _block_status(Xn, st, tau, maxiter)
 
 
 def _solve_bdia_mixed(A: BdiaMatrix, b_np: np.ndarray, *, tau, maxiter,
@@ -352,7 +368,7 @@ def _solve_bdia_mixed(A: BdiaMatrix, b_np: np.ndarray, *, tau, maxiter,
 
 
 def _solve_bdia_multi_mixed(A: BdiaMatrix, B_np: np.ndarray, *, tau,
-                            maxiter, precond, control) -> SolveStatus:
+                            maxiter, precond) -> SolveStatus:
     """k right-hand sides on a BdiaMatrix at mixed precision, in the row
     layout (k, b·nb).  Block-Jacobi (and none): one continuous
     ``cg_lockstep_rr`` pass, K5 in f32 for the operator and for
@@ -378,7 +394,7 @@ def _solve_bdia_multi_mixed(A: BdiaMatrix, B_np: np.ndarray, *, tau,
             tau=tau, precond=pmulti, replace_every=48)
     else:
         papply = _bdia_precond(A32, precond)
-        pmulti = lambda V: torch.stack([papply(v) for v in V])  # noqa: E731
+        pmulti = per_vector(papply, dim=0)
 
         def inner_solve(R32, tau32):
             D, st, _ = cg_solve_multi_rows(
@@ -392,10 +408,146 @@ def _solve_bdia_multi_mixed(A: BdiaMatrix, B_np: np.ndarray, *, tau,
             col_norm=lambda V: torch.sqrt(torch.sum(V * V, dim=1)),
             bc=lambda s: s[:, None], tau=tau,
             inner_tau=max(min(tau, 0.5), 1e-6))
-    agg = KrylovState(int(st.k.max()), st.resid.max(), int(st.reason.max()))
     # (k, b·nb) planar rows -> node-major (n, k)
     Xn = X.reshape(k, A.b, A.nb).permute(2, 1, 0).reshape(A.nb * A.b, k)
-    return make_status(Xn, agg, control)
+    return _block_status(Xn, st, tau, maxiter)
+
+
+def _block_status(X, st, tau, maxiter) -> SolveStatus:
+    """One SolveStatus of a lockstep solve: the largest iterations and
+    residual over the columns, the worst reason (RUNNING < CONVERGED <
+    the failures)."""
+    agg = KrylovState(int(st.k.max()), st.resid.max(), int(st.reason.max()))
+    return make_status(X, agg, CommonSolverArgs(maxiter=maxiter, tau=tau))
+
+
+def _solve_multi(A: HostCSR, B: np.ndarray, *, tau, maxiter, method,
+                 precond, precision, device, **solver_kwargs) -> SolveStatus:
+    """k right-hand sides on a HostCSR (JAX ``solve.py::_solve_multi``):
+    lockstep CG or GMRES, at native precision in the matrix's dtype, at
+    mixed precision ``_solve_multi_mixed``; the direct solve, and GMRES
+    with ``orthog``/``flexible`` or a basis above 2³¹ bytes, by the column
+    loop.  ``soln`` is (n, k) on ``device``."""
+    if method in ("cg", "gmres") and precision == "mixed":
+        return _solve_multi_mixed(A, B, tau=tau, maxiter=maxiter,
+                                  method=method, precond=precond,
+                                  device=device,
+                                  restart=solver_kwargs.get("restart"))
+    if method not in ("cg", "gmres"):
+        return _solve_multi_column_loop(A, B, tau=tau, maxiter=maxiter,
+                                        method=method, precond=precond,
+                                        device=device, **solver_kwargs)
+    n, k = B.shape
+    restart = solver_kwargs.get("restart")
+    if method == "gmres":
+        # gmres_solve_multi runs MGS without a flexible basis, and holds
+        # the whole (m+1, n, k) basis: other requests take the column loop
+        mlen = maxiter if restart is None else max(1, min(int(restart),
+                                                          maxiter))
+        basis_bytes = (mlen + 1) * n * k * np.dtype(A.data.dtype).itemsize
+        if ("orthog" in solver_kwargs or "flexible" in solver_kwargs
+                or basis_bytes > (1 << 31)):
+            return _solve_multi_column_loop(A, B, tau=tau, maxiter=maxiter,
+                                            method=method, precond=precond,
+                                            device=device, **solver_kwargs)
+    A_host, A_dev = as_device_matrix(A, device=device)
+    prec_type = _precond_type(precond, method, n)
+    pmulti = None
+    if prec_type is not None:
+        prec = prec_type.form(A_host, A_dev, device=A_dev.device)
+        if not prec.is_identity:
+            pmulti = per_vector(prec.apply_any)
+    # in the MATRIX dtype, as the single-RHS route solves
+    Bd = torch.as_tensor(B, dtype=A_dev.dtype, device=A_dev.device)
+    mm = lambda V: matmat(A_dev, V)                       # noqa: E731
+    if method == "cg":
+        X, st, _ = cg_solve_multi(mm, Bd, maxiter=maxiter, tau=tau,
+                                  precond=pmulti)
+    else:
+        X, st, _ = gmres_solve_multi(mm, Bd, maxiter=maxiter, tau=tau,
+                                     precond=pmulti, restart=restart)
+    return _block_status(X, st, tau, maxiter)
+
+
+def _solve_multi_mixed(A: HostCSR, B: np.ndarray, *, tau, maxiter, method,
+                       precond, device, restart) -> SolveStatus:
+    """k right-hand sides at mixed precision (JAX
+    ``solve.py::_solve_multi_mixed``) on the factories' operators
+    (``api.mixed_operators``): CG as ONE continuous ``cg_lockstep_rr`` pass
+    in column layout (f32 operator and preconditioner, the f64 oracle for
+    the per-column replacements every 48 steps); GMRES as
+    ``ir_solve_multi`` with ``gmres_solve_multi`` in f32 inside.  The
+    preconditioner is formed on the f32 host matrix.  A BWS pack's RCM
+    ordering is taken on B's rows and undone on X's.  ``soln`` is (n, k) in
+    f64."""
+    dev = resolve_device(device)
+    mx = mixed_operators(A, None, dev)
+    A32, A64 = mx["A32"], mx["A64"]
+    prec_type = _precond_type(precond, method, A.shape[0])
+    pmulti = None
+    if prec_type is not None:
+        prec = prec_type.form(mx["Hp32"], A32, device=dev)
+        if not prec.is_identity:
+            pmulti = per_vector(prec.apply_any)
+    B64 = np.asarray(B, dtype=np.float64)
+    if mx["perm"] is not None:
+        B64 = B64[mx["perm"]]
+    B64 = torch.as_tensor(np.ascontiguousarray(B64), device=dev)
+    if method == "cg":
+        X, st, _ = cg_lockstep_rr(
+            lambda V: matmat(A32, V), B64, mm_hi=lambda V: matmat(A64, V),
+            maxiter=maxiter, tau=tau, precond=pmulti, replace_every=48,
+            dot=lambda a, c: torch.sum(a * c, dim=0),
+            bc=lambda s: s[None, :], n_rhs=B64.shape[1])
+    else:
+        def inner_solve(R32, tau32):
+            D, st, _ = gmres_solve_multi(lambda V: matmat(A32, V), R32,
+                                         maxiter=maxiter, tau=tau32,
+                                         precond=pmulti, restart=restart)
+            return D, st.k
+
+        X, st, _ = ir_solve_multi(
+            lambda V: matmat(A64, V), B64, inner_solve=inner_solve,
+            col_norm=lambda V: torch.sqrt(torch.sum(V * V, dim=0)),
+            bc=lambda s: s[None, :], tau=tau,
+            inner_tau=max(min(tau, 0.5), 1e-6))
+    if mx["iperm"] is not None:
+        X = X[mx["iperm"]]
+    return _block_status(X, st, tau, maxiter)
+
+
+def _solve_multi_column_loop(A: HostCSR, B: np.ndarray, *, tau, maxiter,
+                             method, precond, device,
+                             **solver_kwargs) -> SolveStatus:
+    """The columns one by one through ONE solver, so the setup
+    (factorization, packs) is paid once: the direct solve, or a native
+    CG/GMRES factory with the matrix and the preconditioner frozen.
+    ``soln`` stacks the columns' solutions (n, k); ``iters`` and ``resid``
+    are the largest, ``reason`` the first failure's."""
+    if method == "direct":
+        s = DefaultDirect(device=device).make_solver()
+    elif method in ("cg", "gmres"):
+        control = CommonSolverArgs(maxiter=maxiter, tau=tau)
+        prec_type = _precond_type(precond, method, A.shape[0])
+        factory = (PCG(control, precond=prec_type, device=device)
+                   if method == "cg" else
+                   GMRES(control, precond=prec_type, device=device,
+                         **solver_kwargs))
+        s = factory.make_solver()
+        s.freeze_matrix()
+        s.freeze_prec()
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    sts = [s.solve(A, B[:, j]) for j in range(B.shape[1])]
+    failed = [st for st in sts if not st.success]
+    return SolveStatus(
+        success=not failed,
+        soln=(None if any(st.soln is None for st in sts) else
+              torch.stack([torch.as_tensor(st.soln) for st in sts], dim=1)),
+        resid=max(float(st.resid) for st in sts),
+        iters=max(int(st.iters) for st in sts),
+        reason=failed[0].reason if failed else StopReason.CONVERGED,
+        msg="; ".join(sorted({st.msg for st in sts if st.msg})))
 
 
 # --- mixed-precision solver cache ------------------------------------------

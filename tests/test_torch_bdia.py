@@ -294,12 +294,18 @@ def test_wrappers_refuse_bad_arguments():
 
 @pytest.mark.parametrize("fmt", ["ell", "bws"])
 def test_matmat_refuses_unported_formats(fmt):
+    # ported since slice 10 (ell_spmm_torch; K2 per column, here its
+    # twin): the product equals the column-by-column matvecs
     H = pt.problems.fd_laplacian_2d(50)
     A = {"ell": lambda: EllMatrix.from_host_csr(H, device="cpu"),
          "bws": lambda: pt.BwsMatrix.from_host_csr(H, use_rcm=False,
                                                    device="cpu")}[fmt]()
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 10"):
-        pt.matmat(A, torch.zeros(H.shape[0], 2))
+    X = torch.as_tensor(np.random.default_rng(1).random(
+        (H.shape[0], 2)), dtype=A.dtype)
+    Y = pt.matmat(A, X)
+    for j in range(2):
+        assert _rel(Y[:, j].numpy(),
+                    pt.matvec(A, X[:, j].contiguous()).numpy()) <= 1e-6
 
 
 def test_convert_carries_a_jax_pack_across():

@@ -271,23 +271,28 @@ def test_precond_cache_reuses_and_sees_in_place_updates():
     assert len(tsolve._BDIA_SOLVE_CACHE) <= 8
 
 
-# (solve() arguments, right-hand sides: None for one, else k columns);
-# single-RHS GMRES and IC are ported (tests/test_torch_gmres.py), and
-# precision="mixed" (tests/test_torch_mixed_block.py)
+# (solve() arguments, right-hand sides: None for one, else k columns, the
+# error and its message); single-RHS GMRES and IC are ported
+# (tests/test_torch_gmres.py), and precision="mixed"
+# (tests/test_torch_mixed_block.py); GMRES with k columns is refused (the
+# JAX package runs CG there) and names method="cg"
 UNPORTED = {
-    "mixed": (dict(precision="mixed", mesh=object()), None),
-    "gmres": (dict(method="gmres"), 2),
-    "ic": (dict(precond="ic", precision="mixed", mesh=object()), 2),
-    "mesh": (dict(mesh=object()), None),
+    "mixed": (dict(precision="mixed", mesh=object()), None,
+              NotImplementedError, "ROADMAP slice"),
+    "gmres": (dict(method="gmres"), 2, ValueError, 'method="cg"'),
+    "ic": (dict(precond="ic", precision="mixed", mesh=object()), 2,
+           NotImplementedError, "ROADMAP slice"),
+    "mesh": (dict(mesh=object()), None, NotImplementedError,
+             "ROADMAP slice"),
 }
 
 
 @pytest.mark.parametrize("route", sorted(UNPORTED))
 def test_unported_block_routes_raise(route):
     H, A, _ = _pair(6, 2)
-    kwargs, k = UNPORTED[route]
+    kwargs, k, error, match = UNPORTED[route]
     b = np.ones(H.shape[0]) if k is None else np.ones((H.shape[0], k))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    with pytest.raises(error, match=match):
         pt.solve(A, b, **kwargs)
 
 

@@ -1261,3 +1261,166 @@ def test_auto_block_on_cuda_warns_nothing_on_the_paths(cuda):
                         Hv.matvec(np.ones(Hv.shape[0])), tau=1e-10,
                         precond="ic").success
     assert tbt.block_trisolve_launches > 0
+
+
+# ---------------------------------------------------------------------------
+# Newton (slice 9) and the scalar multi-RHS routes (slice 10's rest)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_jvp_matches_the_twins_jvp(cuda, dtype):
+    """torch.func.jvp through K1's autograd.Function: the primal and the
+    tangent are K1 launches (two per jvp), within K1's tolerance of the
+    twin's own jvp; through Bratu's F the tangent is J·v."""
+    p = pt.problems.Bratu2D(m=63, device=cuda,
+                            dtype=np.float32 if dtype == torch.float32
+                            else np.float64)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, v = (torch.rand(p.n, dtype=dtype, device=cuda, generator=g)
+            for _ in range(2))
+    spmv.dia_spmv_launches = spmv.dia_spmv_jvp_launches = 0
+    y, t = torch.func.jvp(lambda u: spmv.dia_spmv(p.A, u), (x,), (v,))
+    assert spmv.dia_spmv_launches == 2 and spmv.dia_spmv_jvp_launches == 1
+    yr, tr = torch.func.jvp(lambda u: spmv.dia_spmv_torch(p.A, u), (x,),
+                            (v,))
+    assert _rel(y, yr) <= RTOL[dtype] and _rel(t, tr) <= RTOL[dtype]
+    _, t = torch.func.jvp(p.eval_f, (x,), (v,))
+    Jv = spmv.dia_spmv(p.eval_j_dev(x), v)
+    assert _rel(t, Jv) <= 10 * RTOL[dtype]
+
+
+def test_jvp_through_a_kernel_without_function_raises(cuda):
+    """Only K1 carries a tangent; any other kernel refuses a transformed
+    tensor rather than compute on the twin."""
+    H, A = _bws_pack("multi_class", torch.float64, cuda)
+    x = torch.randn(A.n_cols, dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError, match="data pointer"):
+        torch.func.jvp(lambda u: tbws.bws_spmv(A, u), (x,), (x,))
+
+
+def _newton_bratu(device, m=63, precision="native"):
+    inner = pt.PCG(pt.CommonSolverArgs(maxiter=400, tau=1e-12),
+                   precond=pt.AMG(num_iters=5, num_levels=2,
+                                  smoother="jacobi"),
+                   precision=precision, device=device)
+    prob = pt.problems.Bratu2D(m=m, alpha=0.5, device=device)
+    return pt.NewtonSolver(pt.SolverConfig(maxiter=30, tau=1e-12),
+                           solver=inner, min_lin_tol=1e-6, freeze_prec=True,
+                           device=device).solve(
+        prob, torch.zeros(prob.n, dtype=torch.float64, device=device))
+
+
+@pytest.mark.parametrize("precision", ["native", "mixed"])
+def test_newton_bratu_on_cuda_matches_cpu(cuda, precision):
+    spmv.dia_spmv_launches = 0
+    st = _newton_bratu(cuda, precision=precision)
+    assert spmv.dia_spmv_launches > 0
+    ref = _newton_bratu("cpu", precision=precision)
+    assert st.success and ref.success
+    assert st.iters == ref.iters and st.reason == ref.reason
+    assert st.soln.device.type == "cuda"
+    assert _rel(st.soln.cpu(), ref.soln) <= 1e-8
+
+
+def test_newton_krylov_on_cuda_matches_cpu(cuda):
+    kw = dict(tau=1e-12, maxiter=30, inner_maxiter=300, method="cg",
+              min_lin_tol=1e-8)
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = pt.problems.Bratu2D(m=31, device=dev)
+        spmv.dia_spmv_jvp_launches = 0
+        runs[str(dev)] = pt.nonlinear.newton_krylov_solve(
+            p.eval_f, np.zeros(p.n), device=dev,
+            **kw), spmv.dia_spmv_jvp_launches
+    (xc, sc), _ = runs["cpu"]
+    (x, s), jvps = runs[str(cuda)]
+    assert s.reason == sc.reason == pt.StopReason.CONVERGED
+    assert s.k == sc.k and abs(s.inner_total - sc.inner_total) <= s.k
+    # one tangent launch per J·v: the inner CG's products and its start
+    assert jvps >= s.inner_total
+    assert _rel(x.cpu(), xc) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_matmat_on_a_cuda_bws_matrix_matches_the_twin(cuda, dtype):
+    H, A = _bws_pack("multi_class", dtype, cuda)
+    X = torch.randn(A.n_cols, 5, dtype=dtype, device=cuda)
+    want = torch.stack([tbws.bws_spmv_torch(A, X[:, j].contiguous())
+                        for j in range(5)], dim=1)
+    tbws.bws_spmv_launches = 0
+    Y = pt.matmat(A, X)
+    assert tbws.bws_spmv_launches == 5
+    assert _rel(Y, want) <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def _syncs(fn):
+    """(synchronizations, host reads through krylov._host) of fn()."""
+    import warnings
+    from pysolvers_tpu_torch.linear import krylov
+    reads = []
+    real = krylov._host
+    krylov._host = lambda t: reads.append(1) or real(t)
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        krylov._host = real
+    return sum("synchroniz" in str(x.message) for x in w), len(reads)
+
+
+@pytest.mark.parametrize("solver", ["cg", "gmres"])
+def test_multi_rhs_reads_the_host_once_per_iteration(cuda, solver):
+    """Five more lockstep iterations, five more synchronizations."""
+    H = pt.problems.fd_laplacian_2d(63)
+    A = pt.DiaMatrix.from_host_csr(H, device=cuda)
+    B = torch.rand(H.shape[0], 4, dtype=torch.float64, device=cuda)
+    fn = pt.cg_solve_multi if solver == "cg" else pt.gmres_solve_multi
+
+    def run(maxiter):
+        _, st, _ = fn(lambda V: pt.matmat(A, V), B, maxiter=maxiter,
+                      tau=1e-15)
+        assert int(st.k.max()) == maxiter
+
+    s5, _ = _syncs(lambda: run(5))
+    s10, _ = _syncs(lambda: run(10))
+    assert s10 - s5 == 5
+
+
+@pytest.mark.parametrize("kw", [dict(method="cg"), dict(method="gmres"),
+                                dict(method="cg", precision="mixed"),
+                                dict(method="gmres", precision="mixed")])
+def test_solve_multi_on_cuda_matches_cpu(cuda, kw, monkeypatch):
+    """solve(A, B) on the card against the CPU run; its preconditioners
+    ("auto": IC(t) or ILUT, block solves by K8 on the card; the CPU is
+    patched to block mode too) and the solution stay on the card."""
+    _cpu_auto_is_block(monkeypatch)
+    H = (pt.problems.fd_laplacian_2d(40) if kw["method"] == "cg"
+         else pt.fd_convection_diffusion_2d(40))
+    B = np.stack([H.matvec(c) for c in
+                  np.random.default_rng(2).random((3, H.shape[0]))], 1)
+    tbt.block_trisolve_launches = 0
+    st = pt.solve(H, B, tau=1e-10, **kw)
+    assert tbt.block_trisolve_launches > 0
+    ref = pt.solve(H, B, tau=1e-10, device="cpu", **kw)
+    assert st.success and ref.success and st.soln.device.type == "cuda"
+    assert abs(st.iters - ref.iters) <= max(1, ref.iters // 20)
+    assert _rel(st.soln.cpu(), ref.soln) <= 1e-8
+
+
+def test_solve_multi_mixed_unstructured_runs_k2(cuda):
+    H = pt.problems.fem_poisson_2d_unstructured(64, seed=3)
+    B = np.stack([H.matvec(c) for c in
+                  np.random.default_rng(2).random((3, H.shape[0]))], 1)
+    tbws.bws_spmv_launches = 0
+    st = pt.solve(H, B, tau=1e-10, method="cg", precond="jacobi",
+                  precision="mixed")
+    assert st.success and tbws.bws_spmv_launches > 0
+    for j in range(3):
+        r = B[:, j] - H.matvec(st.soln[:, j].cpu().numpy())
+        assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(B[:, j])

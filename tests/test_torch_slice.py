@@ -71,14 +71,11 @@ def test_frozen_preconditioner_is_reused():
     np.testing.assert_array_equal(st1.soln.numpy(), st2.soln.numpy())
 
 
-# precision="mixed" runs since slice 7 (tests/test_torch_mixed*.py); its
-# multi-RHS forms on a scalar HostCSR wait for slice 10
+# precision="mixed" runs since slice 7 (tests/test_torch_mixed*.py), and
+# solve(A, B) on a scalar HostCSR since slice 10
+# (tests/test_torch_multi_rhs.py); the factories take one right-hand side
+# and refuse a 2-D b with a ValueError that names solve(A, B)
 UNPORTED = {
-    "precision_mixed": lambda H, b: pt.solve(H, np.stack([b, b], axis=1),
-                                             precision="mixed",
-                                             device="cpu"),
-    "multi_rhs": lambda H, b: pt.solve(H, np.stack([b, b], axis=1),
-                                       precond="amg"),
     "mesh": lambda H, b: pt.solve(H, b, mesh=object()),
     "pcg_mixed": lambda H, b: pt.PCG(
         precision="mixed", device="cpu").make_solver().solve(
@@ -93,13 +90,31 @@ UNPORTED = {
     "amg_galerkin_device": lambda H, b: pt.AMG(galerkin="device"),
     "vcycle_mesh": lambda H, b: pt.AMGVCycle(mesh=object()),
 }
+FACTORY_BLOCK_RHS = ("pcg_mixed", "pcg_mixed_bws_pair")
 
 
 @pytest.mark.parametrize("route", sorted(UNPORTED))
 def test_unported_routes_raise(route):
     H = pt.problems.fd_laplacian_2d(24)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    error, match = ((ValueError, "solve\\(A, B\\)")
+                    if route in FACTORY_BLOCK_RHS
+                    else (NotImplementedError, "ROADMAP slice"))
+    with pytest.raises(error, match=match):
         UNPORTED[route](H, _rhs(24, 3))
+
+
+@pytest.mark.parametrize("precision", ["native", "mixed"])
+def test_block_rhs_solves_each_column(precision):
+    """solve(A, B) solves each column as solve(A, b) does (within
+    tau = 1e-10 in the host residual)."""
+    H = pt.problems.fd_laplacian_2d(24)
+    B = np.stack([_rhs(24, 3), _rhs(24, 4)], axis=1)
+    st = pt.solve(H, B, tau=1e-10, precond="amg", precision=precision,
+                  device="cpu")
+    assert st.success and tuple(st.soln.shape) == B.shape
+    for j in range(2):
+        r = B[:, j] - H.matvec(st.soln[:, j].numpy())
+        assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(B[:, j])
 
 
 def test_cpu_path_launches_no_kernel():
