@@ -79,6 +79,7 @@ from .sparse.bws import BwsMatrix, pack_arrays
 from .sparse.device import (DiaMatrix, EllMatrix, resolve_device, same_device,
                             torch_dtype)
 from .sparse.host import HostCSR
+from .utils.timing import Timer
 
 
 def CommonSolverArgs(maxiter: int = 100, tau: float = 1e-8,
@@ -96,13 +97,15 @@ def as_device_matrix(A, dtype=None, device=None):
     """Pick the best device format for a matrix: DIA for banded stencils,
     ELL otherwise, on ``device`` (None: the current CUDA device); a
     matrix-free operator passes through.  Returns (A_host or None,
-    A_dev)."""
+    A_dev).  A HostCSR's lowering is the timer "api.as_device_matrix"."""
     if isinstance(A, (EllMatrix, DiaMatrix, BwsMatrix)):
         return None, A
     if isinstance(A, HostCSR):
-        if DiaMatrix.is_profitable(A):
-            return A, DiaMatrix.from_host_csr(A, dtype=dtype, device=device)
-        return A, EllMatrix.from_host_csr(A, dtype=dtype, device=device)
+        with Timer("api.as_device_matrix"):
+            if DiaMatrix.is_profitable(A):
+                return A, DiaMatrix.from_host_csr(A, dtype=dtype,
+                                                  device=device)
+            return A, EllMatrix.from_host_csr(A, dtype=dtype, device=device)
     if isinstance(A, (np.ndarray, torch.Tensor)):
         return None, torch.as_tensor(A, dtype=torch_dtype(dtype),
                                      device=resolve_device(device))

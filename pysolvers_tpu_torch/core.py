@@ -4,7 +4,8 @@ Port of ``pysolvers_tpu/core.py`` (reference PySolvers/IterativeSolver.py:25-57
 ``CommonSolverArgs``, PySolvers/SolveStatus.py:8-56 ``SolveStatus``).  The
 solvers are plain PyTorch loops over tensors; ``SolverConfig`` holds their
 static control knobs and ``make_status`` turns a loop's final state into the
-host-side ``SolveStatus``.
+host-side ``SolveStatus``; ``host_read`` is the one device-to-host read of
+the solver loops.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .utils.timing import Timer, traced
 
 
 class StopReason(enum.IntEnum):
@@ -88,6 +91,19 @@ class SolveStatus:
                 f"final resid={self.resid:.3e}. {self.msg}")
 
 
+def host_read(t: torch.Tensor):
+    """``t`` read to the host: a Python scalar where ``t`` is 0-d
+    (``item``), else a numpy array; one sync where ``t`` lies on the card.
+    Every call adds one to the counter "host_reads" (``Timer.calls``) and,
+    while the profiler runs, is the span "krylov.host_read", the host's
+    wait for the card.  The Krylov solvers' reads (``linear/krylov.py``:
+    ``_host``, the stop reason, the lockstep test) and ``make_status``'s
+    go through it."""
+    Timer.count("host_reads")
+    with traced("krylov.host_read"):
+        return t.item() if t.dim() == 0 else t.cpu().numpy()
+
+
 def make_status(x, state, config: SolverConfig, as_preconditioner: bool = False,
                 history=None, live_reported: bool = False) -> SolveStatus:
     """Build a host SolveStatus from a solver loop's final state.
@@ -96,6 +112,9 @@ def make_status(x, state, config: SolverConfig, as_preconditioner: bool = False,
     .reason (StopReason code).  Reproduces the reference's handleMaxiter
     rule: hitting maxiter counts as success when fail_on_maxiter is False
     (used for AMG-as-preconditioner; IterativeSolver.py:117-129).
+
+    Host reads (``host_read``): ``state.resid`` and ``history``, each where
+    it is a tensor (two after ``cg_solve``).
     """
     reason = StopReason(int(state.reason))
     if reason == StopReason.MAXITER and (not config.fail_on_maxiter or as_preconditioner):
@@ -108,11 +127,14 @@ def make_status(x, state, config: SolverConfig, as_preconditioner: bool = False,
         success = False
         msg = f"stopped: {reason.name}"
     if isinstance(history, torch.Tensor):
-        history = history.cpu().numpy()
+        history = host_read(history)
+    resid = state.resid
+    if isinstance(resid, torch.Tensor):
+        resid = host_read(resid)
     st = SolveStatus(
         success=success,
         soln=x,
-        resid=float(state.resid),
+        resid=float(resid),
         iters=int(state.k),
         reason=reason,
         msg=msg,

@@ -80,7 +80,7 @@ from ..ops.trisolve import build_trisolve_plan, trisolve
 from ..sparse.bws import BwsMatrix
 from ..sparse.device import numpy_dtype, resolve_device, same_device
 from ..sparse.host import HostCSR
-from ..utils.timing import Timer
+from ..utils.timing import Timer, traced, tracing
 from .krylov import KrylovState
 from .preconditioner import (ChebyshevPreconditionerType, Preconditioner,
                              PreconditionerType)
@@ -229,17 +229,24 @@ def sa_coarsen(A: HostCSR, lvl_tol: float, omega: float = 2.0 / 3.0,
     unstructured FEM problem stalled at rel 4e-2 after 30 iterations
     (the inner f32 solve then span to maxiter and the remote TPU
     runtime's watchdog killed the program).  With R = Pᵀ the same
-    problem converges to 1e-10 in 21 iterations."""
+    problem converges to 1e-10 in 21 iterations.
+
+    Timers: "amg.aggregate" (strength and aggregates; none where
+    ``level0`` is given), "amg.galerkin" (P̂, the filtered A, the smoothed
+    P, R and R·A·P)."""
     if level0 is None:
-        strength = strength_neighbors(A, lvl_tol)   # one O(nnz) pass, shared
-        agg = build_aggregates(A, lvl_tol, strength=strength)
+        with Timer("amg.aggregate"):
+            # one O(nnz) strength pass, shared with the filtered matrix
+            strength = strength_neighbors(A, lvl_tol)
+            agg = build_aggregates(A, lvl_tol, strength=strength)
     else:
         strength, agg = level0
-    P_hat = tentative_prolongator(agg, dtype=A.data.dtype)
-    A_f = filtered_matrix(A, lvl_tol, strength=strength)
-    P = smooth_prolongator(A_f, P_hat, omega)
-    R = make_restriction(P, normalize=False)
-    A_c = R.matmat(A.matmat(P))
+    with Timer("amg.galerkin"):
+        P_hat = tentative_prolongator(agg, dtype=A.data.dtype)
+        A_f = filtered_matrix(A, lvl_tol, strength=strength)
+        P = smooth_prolongator(A_f, P_hat, omega)
+        R = make_restriction(P, normalize=False)
+        A_c = R.matmat(A.matmat(P))
     return P, R, A_c
 
 
@@ -628,6 +635,10 @@ def v_cycle(h: DeviceHierarchy, f: torch.Tensor,
     Accepts either hierarchy flavor: the sparse-transfer
     ``DeviceHierarchy`` or the structured-grid ``GridHierarchy``
     (gmg_grid.py).
+
+    While the profiler runs, each visit of level k (0 the coarsest) is the
+    span "amg.level.<k>", its coarser levels nested inside; with it off
+    the cycle checks once and records nothing.
     """
     from .gmg_grid import GridHierarchy, v_cycle_grid
     if isinstance(h, GridHierarchy):
@@ -640,12 +651,17 @@ def v_cycle(h: DeviceHierarchy, f: torch.Tensor,
         x_k = _smooth(lev, h.smoother, x_k, f_k, h.nu_pre)
         r = f_k - matvec(lev.A_dev, x_k)
         f_c = matvec(lev.R_dev, r)
-        x_c = run(k - 1, f_c, torch.zeros_like(f_c))
+        x_c = visit(k - 1, f_c, torch.zeros_like(f_c))
         x_k = x_k + matvec(lev.P_dev, x_c)
         x_k = _smooth(lev, h.smoother, x_k, f_k, h.nu_post)
         return x_k
 
-    return run(h.n_levels - 1, f, x)
+    def run_traced(k, f_k, x_k):
+        with Timer(f"amg.level.{k}"):
+            return run(k, f_k, x_k)
+
+    visit = run_traced if tracing() else run
+    return visit(h.n_levels - 1, f, x)
 
 
 def amg_solve(h: DeviceHierarchy, b: torch.Tensor, *, tau: float = 1e-8,
@@ -803,7 +819,13 @@ class AMGPreconditionerType(PreconditionerType):
     operator's slabs (``build_device_hierarchy``; the device build
     ``parallel.build_distributed_hierarchy``) and the apply takes the
     rank's slab; the JAX package forms it on one device there and lets
-    GSPMD move its vectors."""
+    GSPMD move its vectors.
+
+    Timers of the host build: "amg.host_hierarchy" (``build_sa_hierarchy``;
+    inside it ``sa_coarsen``'s "amg.aggregate" and "amg.galerkin") and
+    "amg.device_lower" (``build_device_hierarchy``, synchronized on CUDA).
+    While the profiler runs each apply is the span "amg.apply"
+    (``num_iters`` V-cycles, ``v_cycle``'s "amg.level.<k>" inside)."""
 
     def __init__(self, num_iters: int = 5, num_levels: int = 2,
                  nu_pre: int = 2, nu_post: int = 2, smoother: str = "auto",
@@ -871,10 +893,11 @@ class AMGPreconditionerType(PreconditionerType):
         num_iters = self.num_iters
 
         def apply(v):
-            x = torch.zeros_like(v)
-            for _ in range(num_iters):
-                x = v_cycle(h, v, x)
-            return x
+            with traced("amg.apply"):
+                x = torch.zeros_like(v)
+                for _ in range(num_iters):
+                    x = v_cycle(h, v, x)
+                return x
 
         prec = self._wrap(apply)
         prec.state = h
@@ -892,11 +915,15 @@ class AMGPreconditionerType(PreconditionerType):
         reuse = (A_dev if bws and isinstance(A_dev, BwsMatrix)
                  and tuple(A_dev.shape) == tuple(A_host.shape) else None)
         with Timer("amg.device_lower"):
-            return build_device_hierarchy(
+            h = build_device_hierarchy(
                 mlh, self.smoother, self.nu_pre, self.nu_post,
                 dtype=A_host.data.dtype if bws else None, device=device,
                 matrix_format=self.matrix_format, fine_A_dev=reuse,
                 mesh=mesh, n_pad=n_pad)
+            if h.device.type == "cuda":
+                # the uploads' tail belongs to the lowering, not the solve
+                torch.cuda.synchronize(h.device)
+        return h
 
 
 # reference-style short aliases (PCGExample_AMG.py uses AMG(...))

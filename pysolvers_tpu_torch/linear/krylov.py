@@ -21,9 +21,17 @@ residual-replacement solvers turn the JAX ``lax.cond`` on a replacement
 into a Python branch: ``cg_solve_rr`` reads one packed vector per
 iteration (the recurrence norm, p·Ap and the previous u·r) and a second
 one on an iteration that replaces; ``cg_lockstep_rr`` reads one pair of
-flags per iteration.  Every such read goes through ``_host``, which tests
-count.  Capturing the iteration in a CUDA graph, and checking the reason
-less often, is later work (ROADMAP slice 3).
+flags per iteration.  Every such read goes through ``core.host_read``,
+which counts it ("host_reads") and, while the profiler runs, spans it
+("krylov.host_read"): the stop reason's read and the lockstep test call it
+directly, every other read calls it through ``_host``, which tests patch
+to count the reads of GMRES, the replacement solvers and the refinement
+passes.  Capturing the iteration in a CUDA graph, and checking the reason
+less often, is later work (ROADMAP queue 4).
+
+While the profiler runs, ``cg_solve`` is the span "krylov.cg" and each of
+its iterations, the stop read included, "krylov.cg_iter"
+(``utils.timing.traced``); with it off they record nothing.
 
 The column-layout multi-RHS solvers read the host once per iteration as
 well: ``cg_solve_multi`` is the lockstep engine with per-column dots, and
@@ -50,7 +58,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core import StopReason
+from ..core import StopReason, host_read
+from ..utils.timing import traced
 
 
 class KrylovState(NamedTuple):
@@ -73,21 +82,23 @@ def _summed(dot: Callable, psum: Optional[Callable]) -> Callable:
     return lambda a, b: psum(dot(a, b))
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
+def _host(t: torch.Tensor):
     """A device-to-host read of a solver iteration (one sync: GMRES's new
-    Hessenberg column, the packed scalars of the replacement solvers);
-    tests count its calls."""
-    return t.cpu().numpy()
+    Hessenberg column, the packed scalars of the replacement solvers): a
+    Python scalar where ``t`` is 0-d, else numpy (``host_read``, which
+    counts every read); tests count its calls."""
+    return host_read(t)
 
 
 def _stop_reason(converged, breakdown, k: int, maxiter: int) -> int:
     """CONVERGED > BREAKDOWN > MAXITER > RUNNING, as the JAX loop orders
-    them; the one host read of the iteration."""
+    them; the one host read of the iteration (``host_read``, not
+    ``_host``)."""
     last = StopReason.MAXITER if k >= maxiter else StopReason.RUNNING
     code = torch.where(converged, int(StopReason.CONVERGED),
                        torch.where(breakdown, int(StopReason.BREAKDOWN),
                                    int(last)))
-    return int(code)
+    return int(host_read(code))
 
 
 def richardson_solve(matvec: Callable, b: torch.Tensor,
@@ -140,49 +151,54 @@ def cg_solve(matvec: Callable, b: torch.Tensor,
     the live equivalent of the reference's reportIter printing
     (IterativeSolver.py:90-99).  ``psum``: the mesh sum of every dot's
     local partial (module docstring).
+
+    Host reads: iterations + 1, each the stop reason's.
     """
-    dot = _summed(_dot, psum)
-    norm = norm_fn or (lambda v: torch.sqrt(dot(v, v)))
-    M = precond or (lambda v: v)
-    if x0 is None:
-        x0 = torch.zeros_like(b)
+    with traced("krylov.cg"):
+        dot = _summed(_dot, psum)
+        norm = norm_fn or (lambda v: torch.sqrt(dot(v, v)))
+        M = precond or (lambda v: v)
+        if x0 is None:
+            x0 = torch.zeros_like(b)
 
-    b_norm = norm(b)
-    tol = tau * b_norm
+        b_norm = norm(b)
+        tol = tau * b_norm
 
-    x = x0
-    r = b - matvec(x0)
-    p = M(r)
-    u_dot_r = dot(p, r)
-    resid = norm(r)
-    history = torch.full((maxiter + 1,), float("nan"), dtype=resid.dtype,
-                         device=resid.device)
-    history[0] = resid
-
-    # trivial b / already converged at x0
-    k = 0
-    reason = _stop_reason(resid <= tol, u_dot_r == 0, 0, 1)
-    while reason == StopReason.RUNNING:
-        Ap = matvec(p)
-        pAp = dot(p, Ap)
-        breakdown_pap = pAp == 0
-        alpha = torch.where(breakdown_pap, 0.0, u_dot_r / pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x = x0
+        r = b - matvec(x0)
+        p = M(r)
+        u_dot_r = dot(p, r)
         resid = norm(r)
-        u = M(r)
-        udr_new = dot(u, r)
-        breakdown_udr = udr_new == 0
-        beta = torch.where(u_dot_r == 0, 0.0, udr_new / u_dot_r)
-        p = u + beta * p
-        u_dot_r = udr_new
-        k += 1
-        if k <= maxiter:        # maxiter=0 still runs one iteration
-            history[k] = resid
-        if iter_callback is not None:
-            iter_callback(k, resid)
-        reason = _stop_reason(resid <= tol, breakdown_pap | breakdown_udr,
-                              k, maxiter)
+        history = torch.full((maxiter + 1,), float("nan"), dtype=resid.dtype,
+                             device=resid.device)
+        history[0] = resid
+
+        # trivial b / already converged at x0
+        k = 0
+        reason = _stop_reason(resid <= tol, u_dot_r == 0, 0, 1)
+        while reason == StopReason.RUNNING:
+            with traced("krylov.cg_iter"):
+                Ap = matvec(p)
+                pAp = dot(p, Ap)
+                breakdown_pap = pAp == 0
+                alpha = torch.where(breakdown_pap, 0.0, u_dot_r / pAp)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                resid = norm(r)
+                u = M(r)
+                udr_new = dot(u, r)
+                breakdown_udr = udr_new == 0
+                beta = torch.where(u_dot_r == 0, 0.0, udr_new / u_dot_r)
+                p = u + beta * p
+                u_dot_r = udr_new
+                k += 1
+                if k <= maxiter:        # maxiter=0 still runs one iteration
+                    history[k] = resid
+                if iter_callback is not None:
+                    iter_callback(k, resid)
+                reason = _stop_reason(resid <= tol,
+                                      breakdown_pap | breakdown_udr, k,
+                                      maxiter)
     return x, KrylovState(k, resid, reason), history
 
 
@@ -242,7 +258,7 @@ def _cg_lockstep(matmat: Callable, B: torch.Tensor, *, maxiter: int,
     reason = torch.where(resid <= tols, codes[StopReason.CONVERGED],
                          torch.where(u_dot_r == 0, codes[StopReason.BREAKDOWN],
                                      codes[StopReason.RUNNING]))
-    while bool(torch.any(reason == StopReason.RUNNING)):
+    while host_read(torch.any(reason == StopReason.RUNNING)):
         running = reason == StopReason.RUNNING
         AP = matmat(P)
         pAp = dot(P, AP)

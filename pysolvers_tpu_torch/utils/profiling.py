@@ -108,10 +108,13 @@ def measure(fn: Callable, *args, warmup: int = 2, repeats: int = 20,
 def trace(log_dir: Optional[str] = None):
     """``torch.profiler`` trace of the block (CPU and, where the card is
     there, CUDA activity), written as ``<log_dir>/trace.json`` (Chrome
-    trace format; ``log_dir`` defaults to ``pst_trace`` under the
-    temporary directory).  Yields the directory."""
+    trace format; without ``log_dir``, a new directory under the
+    temporary directory each call).  Yields the directory.  The trace
+    holds the program's spans (``utils.timing``: "krylov.*", "amg.*")
+    beside the kernels and copies they launched, on one clock."""
     from torch.profiler import ProfilerActivity, profile
-    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "pst_trace")
+    if not log_dir:
+        log_dir = tempfile.mkdtemp(prefix="pst_trace_")
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
