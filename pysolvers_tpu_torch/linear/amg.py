@@ -35,13 +35,14 @@ The cycle runs on the hierarchy's device as plain torch calls, with every
 DIA operator applied by kernel K1 on CUDA and every BWS operator by
 kernel K2: under ``matrix_format="bws"`` every host-built level operator
 and transfer of at least 2000 rows or columns, and on CUDA the device
-build's fine level.  What the JAX package chose by
-``jax.default_backend()`` is chosen here by the hierarchy's
-``device.type``: the "auto" smoother is "jacobi" on CUDA and "gs" on the
-CPU; ``galerkin="auto"`` builds on the device on CUDA where the smoother
-is one the device setup provides (falling back to the host setup where
-the gate refuses, in ``AMGPreconditionerType``) and on the host
-otherwise.  Both setups store P, R and the level operators sparse; the
+build's fine level; the preconditioner's apply replays those calls as
+one CUDA graph where it can (``AMGPreconditionerType``).  What the JAX
+package chose by ``jax.default_backend()`` is chosen here by the
+hierarchy's ``device.type``: the "auto" smoother is "jacobi" on CUDA and
+"gs" on the CPU; ``galerkin="auto"`` builds on the device on CUDA where
+the smoother is one the device setup provides (falling back to the host
+setup where the gate refuses, in ``AMGPreconditionerType``) and on the
+host otherwise.  Both setups store P, R and the level operators sparse; the
 coarsest level of two or more stores only ``A0_inv`` (its ``A_dev`` and
 ``dinv`` are None: the cycle reads nothing else there), taken in f64 on
 the host by the host setup and on the device by the device setup, then
@@ -76,6 +77,7 @@ import torch
 
 from ..core import SolverConfig, SolveStatus, StopReason, make_status
 from ..ops import matvec
+from ..ops.cuda_graph import GraphedApply
 from ..ops.trisolve import build_trisolve_plan, trisolve
 from ..sparse.bws import BwsMatrix
 from ..sparse.device import numpy_dtype, resolve_device, same_device
@@ -801,6 +803,14 @@ class AMGVCycleSolver(IterativeLinearSolver):
                            history=None)
 
 
+def _replays_as_graph(h: DeviceHierarchy, mesh) -> bool:
+    """True where the preconditioner's apply is served by one CUDA graph:
+    a hierarchy on one CUDA device whose smoother sweeps make no host read
+    (Jacobi, Chebyshev).  A mesh's collectives are host round trips."""
+    return (mesh is None and h.device.type == "cuda"
+            and h.smoother in DEVICE_SMOOTHERS)
+
+
 class AMGPreconditionerType(PreconditionerType):
     """AMG as a preconditioner: fixed number of V-cycles per application,
     maxiter-as-success semantics (reference AMGPreconditioner.py:8-51:
@@ -824,8 +834,18 @@ class AMGPreconditionerType(PreconditionerType):
     Timers of the host build: "amg.host_hierarchy" (``build_sa_hierarchy``;
     inside it ``sa_coarsen``'s "amg.aggregate" and "amg.galerkin") and
     "amg.device_lower" (``build_device_hierarchy``, synchronized on CUDA).
-    While the profiler runs each apply is the span "amg.apply"
-    (``num_iters`` V-cycles, ``v_cycle``'s "amg.level.<k>" inside)."""
+
+    The apply runs ``num_iters`` V-cycles.  On one CUDA device (no mesh)
+    with the "jacobi" or "chebyshev" smoother it is served by one CUDA
+    graph per input signature (``ops/cuda_graph.py::GraphedApply``): the
+    first call runs eagerly, the second captures the V-cycles and every
+    call from then on replays them, with the kernels' launch counters
+    advanced as the eager cycles would.  The CPU, a mesh and "gs"/"sgs"
+    run every apply eagerly.  Each apply counts "amg.applies"; graph
+    launches count "amg.graph_captures" and "amg.graph_replays" (the
+    capturing call included).  While the profiler runs each apply is the
+    span "amg.apply"; only an eager apply records ``v_cycle``'s
+    "amg.level.<k>" inside it (a replay visits no level on the host)."""
 
     def __init__(self, num_iters: int = 5, num_levels: int = 2,
                  nu_pre: int = 2, nu_post: int = 2, smoother: str = "auto",
@@ -892,12 +912,19 @@ class AMGPreconditionerType(PreconditionerType):
                                      n_pad)
         num_iters = self.num_iters
 
+        def cycles(v):
+            x = torch.zeros_like(v)
+            for _ in range(num_iters):
+                x = v_cycle(h, v, x)
+            return x
+
+        run = (GraphedApply(cycles, "amg", h.device)
+               if _replays_as_graph(h, mesh) else cycles)
+
         def apply(v):
+            Timer.count("amg.applies")
             with traced("amg.apply"):
-                x = torch.zeros_like(v)
-                for _ in range(num_iters):
-                    x = v_cycle(h, v, x)
-                return x
+                return run(v)
 
         prec = self._wrap(apply)
         prec.state = h
