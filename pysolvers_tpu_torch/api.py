@@ -301,7 +301,8 @@ class IterativeLinearSolver(LinearSolver):
                 return self._formed_prec
             prec = self.precond_type.form()
         else:
-            if A_host is None:
+            if (A_host is None
+                    and not self.precond_type.forms_from_device(A_dev)):
                 raise ValueError(
                     "preconditioner setup needs a HostCSR matrix; pass the "
                     "host matrix (or a (host, device) pair) to solve()")

@@ -27,6 +27,7 @@ import numpy as np
 from ..core import SolverConfig
 from ..sparse.device import DiaMatrix, numpy_dtype, resolve_device
 from ..sparse.host import HostCSR
+from ..utils.timing import Timer, traced
 from .amg import (AMGVCycle, AMGVCycleSolver, MLHierarchy,
                   build_device_hierarchy, make_restriction, v_cycle)
 from .preconditioner import Preconditioner, PreconditionerType
@@ -188,8 +189,19 @@ class GMGPreconditionerType(PreconditionerType):
     (gmg_grid.py); ``executor="sparse"`` uses the generic sparse-transfer
     device hierarchy.  ``galerkin`` (grid executor): "host" (host SpGEMM),
     "device" (probed on the device from the solver's DIA operator, which
-    then uploads nothing) or "auto" ("device" on CUDA, "host" on the CPU).
-    The hierarchy lives on the device the solver passes to ``form``.
+    then uploads nothing) or "auto" ("device" on CUDA or where no host
+    matrix comes, "host" otherwise).  The hierarchy lives on the device
+    the solver passes to ``form``.
+
+    Probed from the solver's DIA operator, the hierarchy's fine level
+    multiplies by that operator's own table (K1), so the solver and the
+    V-cycle hold one fine table; the probed levels of m >=
+    ``gmg_grid.GRID_KERNEL_MIN_M`` are grid tables (K6).  The grid
+    executor with a "device" Galerkin needs no host matrix: a solver may
+    be handed the device ``DiaMatrix`` alone (``forms_from_device``).
+
+    Each apply counts "gmg.applies"; while the profiler runs it is the
+    span "gmg.apply", with ``v_cycle_grid``'s "gmg.level.<k>" inside.
     """
 
     side = "both"
@@ -211,20 +223,31 @@ class GMGPreconditionerType(PreconditionerType):
         self.side = side
         self.galerkin = galerkin
 
-    def _hierarchy(self, A_host: HostCSR, dtype, A_dev, device):
+    def forms_from_device(self, A_dev) -> bool:
+        return self.executor == "grid" and isinstance(A_dev, DiaMatrix)
+
+    def _hierarchy(self, A_host: Optional[HostCSR], dtype, A_dev, device):
         if self.executor == "grid":
             from .gmg_grid import (build_grid_hierarchy,
                                    build_grid_hierarchy_device)
             gal = self.galerkin
             if gal == "auto":
-                gal = "device" if device.type == "cuda" else "host"
+                gal = ("device" if device.type == "cuda" or A_host is None
+                       else "host")
             if gal == "device" and isinstance(A_dev, DiaMatrix):
                 # operator already on the device: probe straight from it —
-                # the hierarchy build uploads nothing
+                # the hierarchy build uploads nothing, and its fine level
+                # is the solver's own table
                 return build_grid_hierarchy_device(
                     A_dev, self.num_levels, self.dims,
                     smoother=self.smoother, nu_pre=self.nu_pre,
-                    nu_post=self.nu_post)
+                    nu_post=self.nu_post, share_fine=True)
+            if A_host is None and gal == "host":
+                raise ValueError(
+                    "GMGPreconditionerType(galerkin='host') builds its "
+                    "coarse operators from a HostCSR matrix; pass the host "
+                    "matrix (or a (host, device) pair) to solve(), or use "
+                    "galerkin='device' or 'auto' with a device DiaMatrix")
             return build_grid_hierarchy(
                 A_host, self.num_levels, self.dims,
                 smoother=self.smoother, nu_pre=self.nu_pre,
@@ -235,16 +258,21 @@ class GMGPreconditionerType(PreconditionerType):
                                       self.nu_post, dtype=dtype,
                                       device=device)
 
-    def form(self, A_host: HostCSR, A_dev=None, device=None) -> Preconditioner:
+    def form(self, A_host: Optional[HostCSR], A_dev=None,
+             device=None) -> Preconditioner:
         device = resolve_device(device)
-        h = self._hierarchy(A_host, A_host.data.dtype, A_dev, device)
+        dtype = (A_host.data.dtype if A_host is not None
+                 else numpy_dtype(A_dev.dtype))
+        h = self._hierarchy(A_host, dtype, A_dev, device)
         num_iters = self.num_iters
 
         def apply(v):
-            x = v.new_zeros(v.shape)
-            for _ in range(num_iters):
-                x = v_cycle(h, v, x)
-            return x
+            Timer.count("gmg.applies")
+            with traced("gmg.apply"):
+                x = v.new_zeros(v.shape)
+                for _ in range(num_iters):
+                    x = v_cycle(h, v, x)
+                return x
 
         prec = self._wrap(apply)
         prec.state = h

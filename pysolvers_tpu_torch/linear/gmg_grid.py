@@ -57,7 +57,7 @@ from ..ops.grid_spmv import GridDiaMatrix
 from ..ops.spmv import dia_spmm_rows
 from ..sparse.device import DiaMatrix, numpy_dtype, resolve_device
 from ..sparse.host import HostCSR
-from ..utils.timing import Timer
+from ..utils.timing import Timer, tracing
 from .amg import MLHierarchy, _smooth
 from .gmg import build_gmg_hierarchy, refinement_ms
 
@@ -399,7 +399,8 @@ def build_grid_hierarchy_device(A_dev: DiaMatrix, num_levels: int,
                                 smoother: str = "jacobi",
                                 nu_pre: int = 2,
                                 nu_post: int = 2,
-                                checkpoint: str = None) -> GridHierarchy:
+                                checkpoint: str = None,
+                                share_fine: bool = False) -> GridHierarchy:
     """GridHierarchy built on A_dev's device from the resident fine DIA
     operator: coarse Galerkin levels by comb probing
     (``_probe_coarse_dia``, level by level), per-level 1/diag, Chebyshev
@@ -414,6 +415,12 @@ def build_grid_hierarchy_device(A_dev: DiaMatrix, num_levels: int,
     file either package wrote loads in the other.  The file is validated
     against the fine operator's structure and a value digest computed on
     the device; a mismatch rebuilds and overwrites.
+
+    ``share_fine``: the fine level multiplies by ``A_dev`` itself (K1 on
+    the caller's table) and makes no grid copy of it, so that a solver
+    that multiplies by ``A_dev`` too and the V-cycle hold one fine table;
+    without it the fine level of m >= ``GRID_KERNEL_MIN_M`` is a grid copy
+    (K6), the JAX package's rule.
     """
     smoother = _check_smoother(smoother)
     ndim = len(dims)
@@ -456,6 +463,9 @@ def build_grid_hierarchy_device(A_dev: DiaMatrix, num_levels: int,
     levels: List[GridLevel] = [GridLevel(None, None, None)]
     for k in range(1, len(ms)):
         tbl, dinv, cheb = out_levels[k - 1]
+        if share_fine and k == len(ms) - 1:
+            levels.append(GridLevel(A_dev, dinv, cheb))
+            continue
         Ak = _dia(tbl, _probed_offsets(A_dev.offsets, ms, ndim, k),
                   ms[k] ** ndim)
         if ndim == 2 and ms[k] >= GRID_KERNEL_MIN_M:
@@ -574,7 +584,11 @@ def _probed_offsets(fine_offsets, ms, ndim: int, k: int):
 def v_cycle_grid(h: GridHierarchy, f: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """One V-cycle with structured-grid transfers (same recursion as
-    amg.v_cycle / reference VCycleManager.py:31-62)."""
+    amg.v_cycle / reference VCycleManager.py:31-62).
+
+    While the profiler runs, each visit of level k (0 the coarsest) is the
+    span "gmg.level.<k>", its coarser levels nested inside; with it off
+    the cycle checks once and records nothing."""
 
     def run(k, f_k, x_k):
         if k == 0:
@@ -584,12 +598,17 @@ def v_cycle_grid(h: GridHierarchy, f: torch.Tensor,
         r = f_k - matvec(lev.A_dev, x_k)
         f_c = grid_restrict(r, h.ndim, h.ms[k], h.ms[k - 1])
         del r
-        x_c = run(k - 1, f_c, torch.zeros_like(f_c))
+        x_c = visit(k - 1, f_c, torch.zeros_like(f_c))
         x_k = x_k + grid_prolong(x_c, h.ndim, h.ms[k - 1], h.ms[k])
         x_k = _smooth(lev, h.smoother, x_k, f_k, h.nu_post)
         return x_k
 
-    return run(h.n_levels - 1, f, x)
+    def run_traced(k, f_k, x_k):
+        with Timer(f"gmg.level.{k}"):
+            return run(k, f_k, x_k)
+
+    visit = run_traced if tracing() else run
+    return visit(h.n_levels - 1, f, x)
 
 
 def grid_vc_apply(num_iters: int):

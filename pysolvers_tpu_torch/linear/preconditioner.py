@@ -80,6 +80,11 @@ class PreconditionerType:
     def form(self, A_host: HostCSR, A_dev=None, device=None) -> Preconditioner:
         raise NotImplementedError
 
+    def forms_from_device(self, A_dev) -> bool:
+        """True where ``form(None, A_dev)`` builds from the device operator
+        alone, so that a solver may be handed no host matrix."""
+        return False
+
     def _wrap(self, apply: Callable) -> Preconditioner:
         if self.side == "left":
             return Preconditioner(left=apply)

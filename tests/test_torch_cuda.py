@@ -652,7 +652,9 @@ def test_k6_on_cuda_never_runs_the_twin(cuda, monkeypatch):
 @pytest.mark.parametrize("galerkin", ["host", "device"])
 def test_gmg_solve_on_cuda_runs_k6(cuda, galerkin, monkeypatch):
     """PCG + grid GMG with the K6 threshold lowered, so that the probed
-    levels of m >= 31 are GridDiaMatrix on the card, against the CPU."""
+    levels of m >= 31 are GridDiaMatrix on the card, against the CPU.
+    Probed from the solver's DIA operator, the fine level multiplies by
+    that operator's own table (K1): one fine table."""
     from pysolvers_tpu_torch.linear import gmg_grid
     from pysolvers_tpu_torch.ops import grid_spmv
     monkeypatch.setattr(gmg_grid, "GRID_KERNEL_MIN_M", 31)
@@ -673,7 +675,8 @@ def test_gmg_solve_on_cuda_runs_k6(cuda, galerkin, monkeypatch):
     st = solver.solve(H, b)
     h = solver._formed_prec.state
     if galerkin == "device":
-        assert isinstance(h.levels[-1].A_dev, grid_spmv.GridDiaMatrix)
+        assert h.levels[-1].A_dev is solver._split_cache[1][1]
+        assert isinstance(h.levels[-2].A_dev, grid_spmv.GridDiaMatrix)
         assert grid_spmv.grid_dia_spmv_launches > 0
     assert spmv.dia_spmv_launches > 0
     ref = run("cpu").solve(H, b)
@@ -682,6 +685,42 @@ def test_gmg_solve_on_cuda_runs_k6(cuda, galerkin, monkeypatch):
     x, xr = st.soln.cpu().numpy(), ref.soln.numpy()
     assert np.linalg.norm(x - xr) / np.linalg.norm(xr) <= 1e-9
     assert np.linalg.norm(b - H.matvec(x)) / np.linalg.norm(b) <= 1e-9
+
+
+@pytest.mark.parametrize("kind", ["one", "random"])
+def test_gmg_device_only_operand_on_cuda_matches_the_plain_reference(
+        cuda, kind, monkeypatch):
+    """A device DiaMatrix alone through the factory on the card: one apply
+    (K6 on the probed m = 63 level, the threshold lowered; K1 on the
+    solver's own fine table) against ``tests/plain_gmg.py`` on the card in
+    f64, within 1e-12 relative (∞-norm: a few hundred f64 roundings), and
+    a whole solve."""
+    import plain_gmg as ref
+    from pysolvers_tpu_torch.linear import gmg_grid
+    from pysolvers_tpu_torch.ops import grid_spmv
+    monkeypatch.setattr(gmg_grid, "GRID_KERNEL_MIN_M", 63)
+    m, levels = 127, 5
+    a = (None if kind == "one" else torch.as_tensor(
+        np.random.default_rng(1127).uniform(0.5, 2.0, size=(m + 1, m + 1))))
+    A_ref = ref.operator(m, a, device=cuda)
+    idx = A_ref.indices().cpu().numpy()
+    H = HostCSR.from_coo(idx[0], idx[1], A_ref.values().cpu().numpy(),
+                         tuple(A_ref.shape))
+    A = DiaMatrix.from_host_csr(H, device=cuda)
+    typ = pt.GMGPreconditionerType((m, m), num_iters=2, num_levels=levels,
+                                   nu_pre=2, nu_post=2, smoother="jacobi")
+    v = torch.randn(m * m, dtype=torch.float64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    grid_spmv.grid_dia_spmv_launches = 0
+    y = typ.form(None, A, device=cuda).apply_any(v)
+    assert grid_spmv.grid_dia_spmv_launches > 0
+    y_ref = ref.apply(ref.hierarchy(A_ref, m, levels), v, 2)
+    assert float((y - y_ref).abs().max() / y_ref.abs().max()) <= 1e-12
+    solver = pt.PCG(pt.CommonSolverArgs(maxiter=200, tau=1e-10),
+                    precond=typ, device=cuda).make_solver()
+    x_star = torch.rand(m * m, dtype=torch.float64, device=cuda)
+    st = solver.solve(A, pt.matvec(A, x_star))
+    assert st.success and solver._formed_prec.state.levels[-1].A_dev is A
 
 
 # ---------------------------------------------------------------------------
