@@ -904,7 +904,7 @@ def unstructured_path(device, m=1025, num_levels=4):
     re-solve seconds and iterations."""
     import torch
     import pysolvers_tpu_torch as pt
-    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, BwsMatrix
     from pysolvers_tpu_torch.utils.timing import Timer
     t0 = time.perf_counter()
     A = pt.problems.fem_poisson_2d_unstructured(m, seed=3)
@@ -940,7 +940,8 @@ def unstructured_path(device, m=1025, num_levels=4):
     tensors = [h.A0_inv, *device_tensors(A_bws)]
     for L in levels:
         for op in (L.A_dev, L.P_dev, L.R_dev):
-            if max(op.shape) >= 2000 and not isinstance(op, BwsMatrix):
+            if max(op.shape) >= 2000 and not isinstance(
+                    op, (BwsMatrix, BwsCsrMatrix)):
                 raise SystemExit(f"operator {op.shape} is "
                                  f"{type(op).__name__}, not BWS")
             tensors += device_tensors(op)
@@ -957,9 +958,12 @@ def unstructured_path(device, m=1025, num_levels=4):
         raise SystemExit(f"the unstructured path made {products} BWS "
                          f"products and launched {counts}")
     ops = {id(op): op for op in [A_bws] + [o for L in levels for o in (
-        L.A_dev, L.P_dev, L.R_dev)] if isinstance(op, BwsMatrix)}
+        L.A_dev, L.P_dev, L.R_dev)] if isinstance(op, (BwsMatrix,
+                                                        BwsCsrMatrix))}
     csr_bytes = sum(op.csr.nbytes for op in ops.values())
+    # the caller's operand is the one pack; the levels are lowered
     pack_bytes = sum(t.numel() * t.element_size() for op in ops.values()
+                     if isinstance(op, BwsMatrix)
                      for t in (op.data, op.lidx, op.delta))
     solver.freeze_matrix()
     solver.freeze_prec()
@@ -986,8 +990,10 @@ def unstructured_path(device, m=1025, num_levels=4):
              f"{rcm_s:.3f} s, fine pack+upload {pack_s:.3f} s; first solve "
              f"{first_s:.3f} s = SA hierarchy "
              f"{Timer.total('amg.host_hierarchy'):.3f} s + device lowering "
-             f"{Timer.total('amg.device_lower'):.3f} s (of it BWS packs "
-             f"{Timer.total('amg.bws_pack'):.3f} s, device CSR included) + "
+             f"{Timer.total('amg.device_lower'):.3f} s (of it the levels' "
+             f"lowering to K2's layout {Timer.total('amg.csr_lower'):.3f} s"
+             f", {Timer.calls('amg.csr_lowerings')} matrices; BWS packs "
+             f"{Timer.calls('amg.bws_packs')}) + "
              f"PCG; frozen re-solve {1e3 * solve_s:.3f} ms, the median of "
              f"{[round(1e3 * w, 3) for w in walls]} ({st2.iters} iters); "
              f"BWS products {products}, launches {counts} | "
@@ -1006,10 +1012,10 @@ def bws_products(h, A_fine, iters, num_iters):
     preconditioner apply at the start and in every iteration
     (``krylov.cg_solve``); a V-cycle applies each level's A nu_pre +
     nu_post + 1 times and its R and P once (``amg.v_cycle``, Jacobi)."""
-    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, BwsMatrix
 
     def bws(op):
-        return int(isinstance(op, BwsMatrix))
+        return int(isinstance(op, (BwsMatrix, BwsCsrMatrix)))
     if h.smoother != "jacobi":
         raise SystemExit(f"the unstructured path smooths by {h.smoother}, "
                          f"not jacobi")
@@ -1021,9 +1027,14 @@ def bws_products(h, A_fine, iters, num_iters):
 def bws_operators(Ap, A_bws, solver, num_levels):
     """(name, HostCSR, f64 pack) of every BWS operator of the unstructured
     hierarchy, fine first; the host operators are rebuilt (the SA setup
-    is deterministic) to pack them in f32 as well."""
+    is deterministic) to pack them in f32 as well.  The levels on the card
+    are K2's layout alone (``BwsCsrMatrix``), with no pack for the twin to
+    read: each is checked equal, in indptr, indices and values, to the
+    layout of the pack the CPU's route makes of its host operator, and
+    that pack stands in for it here."""
+    import torch
     from pysolvers_tpu_torch.linear.amg import build_sa_hierarchy
-    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, BwsMatrix
     mlh = build_sa_hierarchy(Ap, num_levels)
     h = solver._formed_prec.state
     ops = [("fine A", Ap, A_bws)]
@@ -1034,12 +1045,25 @@ def bws_operators(Ap, A_bws, solver, num_levels):
             ops.append((f"A n={n}", mlh.matrices[k], L.A_dev))
         ops.append((f"P to n={n}", mlh.prolongators[k - 1], L.P_dev))
         ops.append((f"R from n={n}", mlh.restrictions[k - 1], L.R_dev))
+    out = []
     for name, H, op in ops:
         if tuple(op.shape) != tuple(H.shape):
             raise SystemExit(f"{name}: host {H.shape} against device "
                              f"{op.shape}")
-    # operators below the packing threshold keep the auto format
-    return [o for o in ops if isinstance(o[2], BwsMatrix)]
+        if isinstance(op, BwsCsrMatrix):
+            pack = BwsMatrix.from_host_csr(
+                H, dtype=np.float64, use_rcm=False,
+                group_rows=32 if H.shape[0] == H.shape[1] else None,
+                gt="auto", device=op.device)
+            if not all(torch.equal(getattr(op.csr, f), getattr(pack.csr, f))
+                       for f in ("indptr", "indices", "values")):
+                raise SystemExit(f"{name}: the lowered layout is not the "
+                                 "pack's")
+            op = pack
+        # operators below the threshold keep the auto format
+        if isinstance(op, BwsMatrix):
+            out.append((name, H, op))
+    return out
 
 
 def device_ms(fn, calls=20, tries=3):

@@ -34,9 +34,10 @@ the hierarchy's device, within a memory gate on the dense prolongator.
 The cycle runs on the hierarchy's device as plain torch calls, with every
 DIA operator applied by kernel K1 on CUDA and every BWS operator by
 kernel K2: under ``matrix_format="bws"`` every host-built level operator
-and transfer of at least 2000 rows or columns, and on CUDA the device
-build's fine level; the preconditioner's apply replays those calls as
-one CUDA graph where it can (``AMGPreconditionerType``).  What the JAX
+and transfer of at least 2000 rows or columns (on CUDA lowered straight to
+K2's layout, with no pack), and on CUDA the device build's fine level; the
+preconditioner's apply replays those calls as one CUDA graph where it can
+(``AMGPreconditionerType``).  What the JAX
 package chose by ``jax.default_backend()`` is chosen here by the
 hierarchy's ``device.type``: the "auto" smoother is "jacobi" on CUDA and
 "gs" on the CPU; ``galerkin="auto"`` builds on the device on CUDA where
@@ -79,7 +80,7 @@ from ..core import SolverConfig, SolveStatus, StopReason, make_status
 from ..ops import matvec
 from ..ops.cuda_graph import GraphedApply
 from ..ops.trisolve import build_trisolve_plan, trisolve
-from ..sparse.bws import BwsMatrix
+from ..sparse.bws import BwsCsrMatrix, BwsMatrix, pack_fits
 from ..sparse.device import numpy_dtype, resolve_device, same_device
 from ..sparse.host import HostCSR
 from ..utils.timing import Timer, traced, tracing
@@ -469,6 +470,14 @@ def sharded_transfers(P_loc: HostCSR, mesh, dtype):
     return P_dev, SummedProduct(R_dev, mesh)
 
 
+def _lowers_to_csr(device) -> bool:
+    """True where a hierarchy's BWS-lane matrices are lowered straight to
+    K2's layout (``BwsCsrMatrix``) rather than packed: on a CUDA device,
+    where K2 reads nothing but that layout.  Tests monkeypatch it to run
+    that route on the CPU."""
+    return torch.device(device).type == "cuda"
+
+
 def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                            nu_pre: int = 2, nu_post: int = 2,
                            dtype=None, device=None, mesh=None,
@@ -485,12 +494,17 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
     operators and transfers go through ``as_device_matrix``: DIA where
     banded (kernel K1 on CUDA), ELL otherwise.
 
-    ``matrix_format="bws"`` packs every level operator and (rectangular)
-    transfer with max(shape) >= 2000 as BWS (kernel K2 on CUDA), in
-    identity order (``use_rcm=False``): ``group_rows=32`` for square
-    levels, the auto geometry for transfers, ``gt="auto"``.  A matrix too
-    unbanded for a BWS window keeps the auto format, as in the JAX
-    package.
+    ``matrix_format="bws"`` puts every level operator and (rectangular)
+    transfer with max(shape) >= 2000 in the BWS lane, in identity order
+    (``use_rcm=False``), where its pack would take a window
+    (``group_rows=32`` for square levels, the auto geometry for
+    transfers, ``gt="auto"``); a matrix too unbanded for one keeps the
+    auto format, as in the JAX package.  On CUDA such a matrix is lowered
+    straight to K2's layout, a ``BwsCsrMatrix`` (span "amg.csr_lower",
+    counter "amg.csr_lowerings"): K2 reads that layout alone, so no pack is
+    built, and ``pack_fits`` says without one whether the pack would have
+    been made.  On the CPU it is packed as the JAX package packs it, a
+    ``BwsMatrix`` run by the twin ("amg.bws_pack", "amg.bws_packs").
 
     ``fine_A_dev``: a device operator the caller already holds for the
     finest level (e.g. the solver's BWS pack), reused instead of packing
@@ -522,16 +536,31 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                          f"hierarchy on {device}")
 
     def device_matrix(M: HostCSR):
-        # below ~2000 rows and columns packing costs more than it saves
+        """M on ``device``.  In the BWS lane (asked for, and M of 2000 rows
+        or columns or more: below, it costs more than it saves) as K2's
+        layout alone on CUDA, where K2 reads nothing else, and as the JAX
+        package's pack on the CPU, where the twin reads the pack; a matrix
+        whose pack would overflow, and any other, in the auto format."""
         if matrix_format == "bws" and max(M.shape) >= 2000:
-            try:
-                with Timer("amg.bws_pack"):
-                    return BwsMatrix.from_host_csr(
-                        M, dtype=dtype or M.data.dtype, use_rcm=False,
-                        group_rows=32 if M.shape[0] == M.shape[1] else None,
-                        gt="auto", device=device)
-            except ValueError:
-                pass    # too unbanded for a window — the auto format
+            group_rows = 32 if M.shape[0] == M.shape[1] else None
+            if _lowers_to_csr(device):
+                with Timer("amg.csr_lower"):
+                    M_dev = (BwsCsrMatrix.from_host_csr(
+                        M, dtype=dtype or M.data.dtype, device=device)
+                        if pack_fits(M, group_rows) else None)
+                if M_dev is not None:
+                    Timer.count("amg.csr_lowerings")
+                    return M_dev
+            else:
+                try:
+                    with Timer("amg.bws_pack"):
+                        M_dev = BwsMatrix.from_host_csr(
+                            M, dtype=dtype or M.data.dtype, use_rcm=False,
+                            group_rows=group_rows, gt="auto", device=device)
+                    Timer.count("amg.bws_packs")
+                    return M_dev
+                except ValueError:
+                    pass    # too unbanded for a window — the auto format
         return as_device_matrix(M, dtype=dtype, device=device)[1]
 
     levels: List[DeviceLevel] = []
@@ -861,7 +890,7 @@ class AMGPreconditionerType(PreconditionerType):
         self.base_tol = base_tol
         self.side = side
         self.galerkin = galerkin
-        # "bws": level operators and transfers packed for kernel K2
+        # "bws": level operators and transfers on kernel K2
         # (build_device_hierarchy) — the path for large unstructured
         # hierarchies, where ELL gathers serve every level otherwise
         self.matrix_format = matrix_format

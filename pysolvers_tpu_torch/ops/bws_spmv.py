@@ -7,7 +7,10 @@ Port of ``pysolvers_tpu/ops/bws_spmv.py``:
   block of the matrix's device CSR (``A.csr``), whatever ``s_classes``
   holds.  The JAX package runs the segment classes (K3) when the slots
   they skip pay for the extra calls; the device CSR has no padded slots,
-  so on the card the classes only add launches.
+  so on the card the classes only add launches.  A ``BwsCsrMatrix`` (the
+  layout alone, an AMG level lowered on CUDA) takes the same launch,
+  counted the same way; on the CPU its product is
+  ``bws_csr_spmv_torch``.
 * ``bws_spmv_by_class(A, x)`` — the wrapper of kernel K3: the same
   product with one launch per segment class, each over the row blocks of
   its tiles.  No solve path calls it.
@@ -33,8 +36,8 @@ import ctypes
 
 import torch
 
-from ..sparse.bws import (BwsMatrix, CALL_COST_SLOTS, SELECT_DIV_EXACT,
-                          SELECT_DIV_FAST)
+from ..sparse.bws import (BwsCsrMatrix, BwsMatrix, CALL_COST_SLOTS,
+                          SELECT_DIV_EXACT, SELECT_DIV_FAST)
 from . import _cuda_build
 
 # Launches of K2 (bws_spmv) and of K3 (bws_spmv_by_class) since the last
@@ -91,6 +94,17 @@ def bws_spmv_torch(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)[: A.n_rows]
 
 
+def bws_csr_spmv_torch(A: BwsCsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The plain product over a ``BwsCsrMatrix``'s layout (it has no
+    pack for ``bws_spmv_torch`` to read)."""
+    L = A.csr
+    rows = torch.repeat_interleave(
+        torch.arange(A.n_rows, device=x.device),
+        (L.indptr[1:] - L.indptr[:-1]).to(torch.int64))
+    y = torch.zeros(A.n_rows, dtype=A.dtype, device=x.device)
+    return y.index_add_(0, rows, L.values * x[L.indices.to(torch.int64)])
+
+
 def _entry(name: str, dtype, index_dtype):
     key = (name, dtype, index_dtype)
     fn = _ENTRIES.get(key)
@@ -113,9 +127,10 @@ def _check(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 
 
-def _check_call(A: BwsMatrix, x: torch.Tensor) -> bool:
-    """Checks both wrappers share; True when x lies on the CPU (the twin's
-    case), False on CUDA, where A must carry its layout."""
+def _check_call(A, x: torch.Tensor) -> bool:
+    """Checks both wrappers share, for a ``BwsMatrix`` or a
+    ``BwsCsrMatrix``; True when x lies on the CPU (the twin's case), False
+    on CUDA, where A must carry its layout."""
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"BWS SpMV takes float32 or float64, got {A.dtype}")
     if x.dtype != A.dtype:
@@ -149,16 +164,19 @@ def _launch_args(L, x: torch.Tensor, y: torch.Tensor):
             y.data_ptr(), dev, torch._C._cuda_getCurrentRawStream(dev))
 
 
-def bws_spmv(A: BwsMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y' = A'·x' in the pack's ordering (x' = x[perm], y = y'[iperm]).
+def bws_spmv(A, x: torch.Tensor) -> torch.Tensor:
+    """y' = A'·x' in the pack's ordering (x' = x[perm], y = y'[iperm]) of
+    a ``BwsMatrix``, or y = A·x of a ``BwsCsrMatrix``.
 
     ``x`` has length shape[1] (rectangular packs — AMG transfers — are
     supported); the result has length shape[0].  On CUDA: one launch of
-    K2 over every row block of ``A.csr``, whatever ``s_classes`` holds;
-    on the CPU: the twin."""
+    K2 over every row block of ``A.csr``, whatever ``s_classes`` holds,
+    the same launch for both types; on the CPU: the twin over the pack,
+    or the plain product over a ``BwsCsrMatrix``'s layout."""
     global bws_spmv_launches
     if _check_call(A, x):
-        return bws_spmv_torch(A, x)
+        return (bws_spmv_torch(A, x) if isinstance(A, BwsMatrix)
+                else bws_csr_spmv_torch(A, x))
     L = A.csr
     y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
     args = _launch_args(L, x, y)

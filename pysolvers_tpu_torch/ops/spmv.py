@@ -27,7 +27,8 @@ Port of ``pysolvers_tpu/ops/spmv.py``:
   rectangular padding rule.  ``dia_spmm_rows`` is the same product on the
   row layout (k, n); the GMG prober calls it on its comb batches.
 * ``matvec`` — dispatch by format; a ``BwsMatrix`` goes to ``bws_spmv``
-  (kernel K2, ``ops/bws_spmv.py``) in the pack's ordering, a
+  (kernel K2, ``ops/bws_spmv.py``) in the pack's ordering, and so does a
+  ``BwsCsrMatrix`` (the layout alone), a
   ``BdiaMatrix`` to ``bdia_spmv`` in planar ordering, a ``GridDiaMatrix``
   to ``grid_dia_spmv`` (kernel K6, ``ops/grid_spmv.py``), a matrix-free
   operator (``ndim == 2`` and ``@``, ``linear/operator.py``) to its own
@@ -67,7 +68,7 @@ import ctypes
 import torch
 
 from ..sparse.bdia import BdiaMatrix
-from ..sparse.bws import BwsMatrix
+from ..sparse.bws import BwsCsrMatrix, BwsMatrix
 from ..sparse.device import DiaMatrix, EllMatrix
 from . import _cuda_build
 from .bws_spmv import bws_spmv
@@ -359,15 +360,16 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for any device format of the port.
 
     A BwsMatrix operates in its packed ordering (the identity when packed
-    with use_rcm=False, as AMG hierarchies are); a BdiaMatrix in planar
-    ordering."""
+    with use_rcm=False, as AMG hierarchies are), a BwsCsrMatrix (an AMG
+    level lowered on CUDA) in its host matrix's, both by ``bws_spmv``; a
+    BdiaMatrix in planar ordering."""
     if isinstance(A, DiaMatrix):
         return dia_spmv(A, x)
     if isinstance(A, GridDiaMatrix):
         return grid_dia_spmv(A, x)
     if isinstance(A, BdiaMatrix):
         return bdia_spmv(A, x)
-    if isinstance(A, BwsMatrix):
+    if isinstance(A, (BwsMatrix, BwsCsrMatrix)):
         return bws_spmv(A, x)
     if isinstance(A, EllMatrix):
         return ell_spmv_torch(A, x)
@@ -393,15 +395,16 @@ def per_vector(apply, dim: int = 1):
 def matmat(A, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for a multi-vector X of shape (n, k): a BdiaMatrix (planar
     ordering, kernel K5), a DiaMatrix (``dia_spmm``), an EllMatrix
-    (``ell_spmm_torch``), a BwsMatrix (K2 once per column, in the pack's
-    ordering; on the CPU its twin), a dense or a matrix-free operator."""
+    (``ell_spmm_torch``), a BwsMatrix or a BwsCsrMatrix (K2 once per
+    column, in the pack's ordering; on the CPU the twin), a dense or a
+    matrix-free operator."""
     if isinstance(A, BdiaMatrix):
         return bdia_spmm(A, X)
     if isinstance(A, DiaMatrix):
         return dia_spmm(A, X)
     if isinstance(A, EllMatrix):
         return ell_spmm_torch(A, X)
-    if isinstance(A, BwsMatrix):
+    if isinstance(A, (BwsMatrix, BwsCsrMatrix)):
         return per_vector(lambda x: bws_spmv(A, x))(X)
     if isinstance(A, torch.Tensor) or (getattr(A, "ndim", None) == 2
                                        and hasattr(A, "__matmul__")):

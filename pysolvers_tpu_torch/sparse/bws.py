@@ -28,6 +28,20 @@ on the device by ``bws_device_csr`` when the matrix is made, with the
 row-block partition that kernels K2/K3 (``csrc/bws_spmv.cu``) walk.  A
 CPU matrix carries none; its product is the twin over the pack.
 
+Two routes reach that layout, by the device:
+
+* on CUDA, a matrix that an AMG hierarchy would pack
+  (``linear/amg.py::build_device_hierarchy``) is lowered straight from
+  its host CSR to a ``BwsCsrMatrix``: the layout alone, with no pack
+  built and no padded table uploaded.  K2 reads nothing else, and a
+  hierarchy's coarse patterns follow its aggregates, so the pack's
+  structure cache would not spare a rebuild.  ``pack_fits`` gives, in
+  O(nnz) and without a pack, whether the pack would have been made, so
+  that a matrix too unbanded for a window keeps the auto format as before;
+* on the CPU, and for every operand a caller packs itself, the pack stays
+  (``BwsMatrix``), so that the CPU levels are the JAX package's packs bit
+  for bit and run the twin.
+
 The geometry model (``STEP_COST_SLOTS`` … ``SELECT_DIV_FAST``) is the JAX
 package's, measured there for its TPU kernel (per-step, per-call and
 one-hot-select costs).  It is kept unchanged so that both packages choose
@@ -137,17 +151,8 @@ def _auto_geometry(H: HostCSR, perm, fast_select: bool):
     sel_div = SELECT_DIV_FAST if fast_select else SELECT_DIV_EXACT
     best = None
     for gr in (8, 16, 32, 64):
-        slots_per_row = 128 // gr
-        inst = (counts + slots_per_row - 1) // slots_per_row
         n_groups = _ceil_to(n, gr * GT) // gr
-        g = urow // gr
-        gb_key = g * nblk + ublk
-        gb_uniq, gb_inv = np.unique(gb_key, return_inverse=True)
-        seg = np.zeros(len(gb_uniq), dtype=np.int64)
-        np.maximum.at(seg, gb_inv, inst)          # segments per (group, blk)
-        used = np.zeros(n_groups, dtype=np.int64)
-        np.add.at(used, gb_uniq // nblk, seg)
-        used = np.maximum(used, 1)
+        used = _used_segments(urow, ublk, counts, nblk, n, gr)
         S_est = int(used.max())
         for gt_val in (128, 64, 32, 16, 8):
             if (gt_val * gr) % 128 or n_groups % gt_val:
@@ -171,6 +176,24 @@ def _auto_geometry(H: HostCSR, perm, fast_select: bool):
         raise ValueError("BWS window overflow (matrix too unbanded); "
                          "use the ELL path")
     return best[1], best[2]
+
+
+def _used_segments(urow, ublk, counts, nblk, n, gr):
+    """Segments each group of ``gr`` rows uses (at least 1), from the
+    nonzero ``counts`` of the unique (row, column block) pairs: per
+    (group, block) the most instances any of its rows needs, summed over
+    the group's blocks."""
+    slots_per_row = 128 // gr
+    inst = (counts + slots_per_row - 1) // slots_per_row
+    n_groups = _ceil_to(n, gr * GT) // gr
+    g = urow // gr
+    gb_key = g * nblk + ublk
+    gb_uniq, gb_inv = np.unique(gb_key, return_inverse=True)
+    seg = np.zeros(len(gb_uniq), dtype=np.int64)
+    np.maximum.at(seg, gb_inv, inst)          # segments per (group, blk)
+    used = np.zeros(n_groups, dtype=np.int64)
+    np.add.at(used, gb_uniq // nblk, seg)
+    return np.maximum(used, 1)
 
 
 def _geom_cost(used, gt_val, S):
@@ -204,19 +227,83 @@ def window_fits(H: HostCSR, group_rows: int = DEFAULT_GROUP_ROWS) -> bool:
     more column blocks than ``_pack`` allows, and a larger tile spans at
     least as many.  O(nnz), without packing; True does not promise that
     the pack succeeds."""
-    n, n_cols = H.shape
     if H.nnz == 0:
         return True
     tile_rows = min(g * group_rows for g in (8, 16, 32, 64, 128)
                     if (g * group_rows) % 128 == 0)
+    return (_tile_windows(H, [tile_rows])[tile_rows]
+            <= max(256, _ceil_to(H.shape[1], 128) // 128 // 2))
+
+
+def _tile_windows(H: HostCSR, tile_rows) -> dict:
+    """{rows per tile: the window, in column blocks, that ``_pack`` gives
+    tiles of that many rows in H's own ordering}, for tile sizes that are
+    multiples of the smallest (powers of two here).  H holds a nonzero."""
+    n = H.shape[0]
+    t0 = min(tile_rows)
     blk = H.indices.astype(np.int64) // 128
-    starts = H.indptr[:-1:tile_rows] if n else H.indptr[:0]
+    starts = H.indptr[:-1:t0]
     ends = np.append(starts[1:], H.indptr[-1])
-    full = starts < ends                  # tiles holding a nonzero
-    lo = np.minimum.reduceat(blk, starts[full])
-    hi = np.maximum.reduceat(blk, starts[full]) + 1
-    win = _ceil_to(max(int((hi - lo // 8 * 8).max()), 1), 8)
-    return win <= max(256, _ceil_to(n_cols, 128) // 128 // 2)
+    full = starts < ends                  # tiles of t0 rows holding a nonzero
+    big = np.iinfo(np.int64).max
+    lo = np.full(len(starts), big, dtype=np.int64)
+    hi = np.zeros(len(starts), dtype=np.int64)
+    lo[full] = np.minimum.reduceat(blk, starts[full])
+    hi[full] = np.maximum.reduceat(blk, starts[full]) + 1
+    out = {}
+    for t in sorted(set(tile_rows)):
+        k = t // t0
+        pad = -len(lo) % k
+        lo_t = np.pad(lo, (0, pad), constant_values=big).reshape(
+            -1, k).min(axis=1)
+        hi_t = np.pad(hi, (0, pad)).reshape(-1, k).max(axis=1)
+        span = np.where(lo_t == big, 0, hi_t - lo_t // 8 * 8)
+        out[t] = _ceil_to(max(int(span.max(initial=1)), 1), 8)
+    return out
+
+
+def pack_fits(H: HostCSR, group_rows: Optional[int] = None) -> bool:
+    """Whether ``pack_arrays(H, use_rcm=False, group_rows=group_rows,
+    gt="auto")`` packs H rather than raising, found without a pack: the
+    pack refuses an empty pattern and a window wider than it allows.
+
+    * ``group_rows`` None (the auto geometry): the pack fails only where
+      no (group_rows, gt) of the geometry pass takes a window.
+    * ``group_rows`` given: the window is checked at the tile that the
+      cost model picks.  A tile's window never shrinks as it grows, so
+      the pick matters only where one tile fits and another does not;
+      only there are the model's segment counts taken (one sort of the
+      (row, column block) pairs), as ``_pack`` takes them.
+
+    Every group count is a multiple of ``GT``, so each tile size whose
+    rows are a multiple of 128 is a candidate.  Stored zeros count, as
+    their slots do in the pack.  O(nnz) otherwise; ``window_fits`` is the
+    smallest tile's test alone."""
+    if H.nnz == 0:
+        return False
+    n, n_cols = H.shape
+    limit = max(256, _ceil_to(n_cols, 128) // 128 // 2)
+    geoms = [(gr, g) for gr in ((8, 16, 32, 64) if group_rows is None
+                                else (group_rows,))
+             for g in (128, 64, 32, 16, 8) if (g * gr) % 128 == 0]
+    wins = _tile_windows(H, [gr * g for gr, g in geoms])
+    fits = {(gr, g): wins[gr * g] <= limit for gr, g in geoms}
+    if group_rows is None or len(set(fits.values())) == 1:
+        return any(fits.values())
+    rows, cols, _ = H.to_coo()
+    blk = cols // 128
+    nblk = int(blk.max()) + 1
+    uniq, counts = np.unique(rows * nblk + blk, return_counts=True)
+    used = _used_segments(uniq // nblk, uniq % nblk, counts, nblk, n,
+                          group_rows)
+    S_est = int(used.max())
+    best = None
+    for _, g in geoms:                    # _pack's gt="auto", its tie rule
+        cost = _geom_cost(used, g, S_est)
+        if best is None or cost < best[0] or (cost == best[0]
+                                             and g > best[1]):
+            best = (cost, g)
+    return fits[(group_rows, best[1])]
 
 
 def pack_arrays(H: HostCSR, dtype=np.float32, use_rcm: bool = True,
@@ -709,3 +796,90 @@ class BwsMatrix:
         return BwsMatrix.from_numpy(
             **pack_arrays(H, numpy_dtype(dtype), use_rcm, group_rows,
                           fast_select, gt), device=device)
+
+
+# Rows per tile of a ``BwsCsrMatrix``'s row blocks: the default pack's
+# tile (GT groups of DEFAULT_GROUP_ROWS).  Its cuts serve only K3's segment
+# classes, which this layout has none of.
+CSR_TILE_ROWS = GT * DEFAULT_GROUP_ROWS
+
+
+@dataclasses.dataclass(frozen=True)
+class BwsCsrMatrix:
+    """A matrix in the card's layout of the BWS lane (``BwsCsr``) alone,
+    with no pack: what K2 reads, lowered straight from a host CSR.
+
+    The AMG hierarchy's levels and transfers take it on CUDA
+    (``linear/amg.py::build_device_hierarchy``): K2 never reads a pack, so
+    packing them (a geometry search, sorts, segment tables, 4–5× the
+    nonzeros in padded slots, uploaded and turned back into this CSR on
+    the card) would only cost time.  On the CPU those levels stay ``BwsMatrix``
+    packs, the JAX package's, and this type runs a plain product over the
+    layout (``ops/bws_spmv.py::bws_csr_spmv_torch``).
+
+    Its indptr, indices and values are those of ``bws_device_csr`` of the
+    ``use_rcm=False`` pack of the same matrix and type, bit for bit: the
+    values cast to ``dtype``, the zeros among them dropped, columns
+    ascending in each row.  The row blocks are cut at every
+    ``CSR_TILE_ROWS`` (4096) rows whatever geometry a pack would have
+    picked; the layout has no segment classes.
+
+    shape: (n_rows, n_cols), in the host matrix's own ordering
+    csr:   the layout (``class_blocks`` empty, ``class_starts`` ())
+    """
+
+    shape: tuple
+    csr: BwsCsr
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def dtype(self):
+        return self.csr.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.csr.values.device
+
+    @property
+    def nnz(self) -> int:
+        return self.csr.nnz
+
+    @staticmethod
+    def from_host_csr(H: HostCSR, dtype=np.float32,
+                      device=None) -> "BwsCsrMatrix":
+        """Lower H onto ``device`` (None: the current CUDA device): the
+        three arrays uploaded once, the row blocks built there by
+        ``row_block_table``."""
+        device = resolve_device(device)
+        n = H.shape[0]
+        indptr = np.asarray(H.indptr, dtype=np.int64)
+        indices = np.asarray(H.indices)
+        values = np.asarray(H.data, dtype=numpy_dtype(dtype))
+        keep = values != 0
+        if not keep.all():
+            indptr = np.concatenate([[0], np.cumsum(keep)])[indptr]
+            indices, values = indices[keep], values[keep]
+        # a column that falls inside its row: columns out of order there
+        down = np.flatnonzero(indices[1:] < indices[:-1]) + 1
+        if len(down) and not np.isin(down, indptr).all():
+            rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+            order = np.lexsort((indices, rows))
+            indices, values = indices[order], values[order]
+        nnz = len(indices)
+        ptr = torch.as_tensor(
+            indptr.astype(np.int32 if nnz < 2**31 else np.int64),
+            device=device)
+        csr = BwsCsr(ptr,
+                     torch.as_tensor(indices.astype(np.int32, copy=False),
+                                     device=device),
+                     torch.as_tensor(values, device=device),
+                     row_block_table(ptr, CSR_TILE_ROWS),
+                     torch.zeros(0, dtype=torch.int32, device=device), ())
+        return BwsCsrMatrix(tuple(int(s) for s in H.shape), csr)

@@ -29,7 +29,7 @@ import torch
 import pysolvers_tpu_torch as pt
 import pysolvers_tpu_torch.linear.amg as tamg
 from pysolvers_tpu_torch.ops import _cuda_build, cuda_graph, spmv
-from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, BwsMatrix
 from pysolvers_tpu_torch.utils.timing import Timer
 
 NUM_ITERS = 2
@@ -171,10 +171,11 @@ def _formed(case, cuda):
         kinds = {type(lvl.A_dev).__name__ for lvl in prec.state.levels}
         assert {"DiaMatrix", "EllMatrix"} <= kinds
         return prec, torch.float64, 0.0
-    if case == "bws":                        # K2 on every packed level
+    if case == "bws":                        # K2 on every BWS-lane level
         prec = pt.AMG(num_iters=NUM_ITERS, num_levels=4, galerkin="host",
                       matrix_format="bws").form(_fem(), device=cuda)
-        assert isinstance(prec.state.levels[-1].A_dev, BwsMatrix)
+        # on the card the levels are lowered straight to K2's layout
+        assert isinstance(prec.state.levels[-1].A_dev, BwsCsrMatrix)
         return prec, torch.float64, 1e-12
     H = pt.problems.fd_laplacian_2d(255)     # f32 hierarchy
     H32 = dataclasses.replace(H, data=H.data.astype(np.float32))

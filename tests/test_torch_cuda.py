@@ -374,6 +374,134 @@ def test_bws_on_cuda_never_runs_the_twin(cuda, monkeypatch):
             fn(A, x)
 
 
+def _fem_hierarchy(m=257, num_levels=4):
+    """(RCM-ordered FEM host matrix, its host SA hierarchy)."""
+    A = pt.problems.fem_poisson_2d_unstructured(m, seed=3)
+    Ap = A.permute_symmetric(BwsMatrix._rcm_perm(A))
+    return Ap, tamg.build_sa_hierarchy(Ap, num_levels)
+
+
+def _hierarchy_ops(h):
+    return [op for L in h.levels[1:] for op in (L.A_dev, L.P_dev, L.R_dev)]
+
+
+def test_cuda_hierarchy_lowers_every_bws_matrix_to_the_layout(cuda):
+    """On the card every BWS-lane level and transfer is a BwsCsrMatrix whose
+    indptr, indices and values are the card-built pack's layout, bit for
+    bit; nothing is packed."""
+    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix
+    from pysolvers_tpu_torch.utils.timing import Timer
+    _, mlh = _fem_hierarchy()
+    Timer.reset()
+    h = tamg.build_device_hierarchy(mlh, "jacobi", dtype=np.float64,
+                                    device=cuda, matrix_format="bws")
+    ops = _hierarchy_ops(h)
+    lowered = [op for op in ops if isinstance(op, BwsCsrMatrix)]
+    assert len(lowered) >= 4
+    assert all(isinstance(op, BwsCsrMatrix) == (max(op.shape) >= 2000)
+               for op in ops)
+    assert Timer.calls("amg.csr_lowerings") == len(lowered)
+    assert Timer.calls("amg.bws_packs") == 0
+    hosts = [M for k in range(1, mlh.n_levels) for M in (
+        mlh.matrices[k], mlh.prolongators[k - 1], mlh.restrictions[k - 1])]
+    for op, M in zip(ops, hosts):
+        if not isinstance(op, BwsCsrMatrix):
+            continue
+        assert op.device.type == "cuda" and op.shape == tuple(M.shape)
+        L = BwsMatrix.from_host_csr(
+            M, dtype=np.float64, use_rcm=False,
+            group_rows=32 if M.shape[0] == M.shape[1] else None, gt="auto",
+            device=cuda).csr
+        for f in ("indptr", "indices", "values"):
+            assert torch.equal(getattr(op.csr, f), getattr(L, f)), f
+    Timer.reset()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k2_over_the_layout_matches_the_pack_route(cuda, dtype):
+    """One K2 launch a product, counted as the pack's is, and the pack's
+    answer within 1e-14 (f64) of max|y|: the same CSR, cut into other row
+    blocks."""
+    from pysolvers_tpu_torch.ops import _cuda_build
+    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix
+    _, mlh = _fem_hierarchy()
+    tol = {torch.float64: 1e-14, torch.float32: 1e-6}[dtype]
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    for M in (mlh.matrices[-2], mlh.prolongators[-1], mlh.restrictions[-1]):
+        C = BwsCsrMatrix.from_host_csr(M, dtype=np_dt, device=cuda)
+        A = BwsMatrix.from_host_csr(
+            M, dtype=np_dt, use_rcm=False,
+            group_rows=32 if M.shape[0] == M.shape[1] else None, gt="auto",
+            device=cuda)
+        x = torch.randn(M.shape[1], dtype=dtype, device=cuda)
+        _cuda_build.launches_by_dtype.clear()
+        before = (tbws.bws_spmv_launches, tbws.bws_spmv_classes_launches)
+        y = pt.matvec(C, x)
+        torch.cuda.synchronize()
+        assert (tbws.bws_spmv_launches, tbws.bws_spmv_classes_launches) == (
+            before[0] + 1, before[1])
+        assert _cuda_build.launches_by_dtype["K2", str(dtype).split(".")[1]
+                                             ] == 1
+        assert y.shape == (M.shape[0],) and y.dtype == dtype
+        assert _rel(y, tbws.bws_spmv(A, x)) <= tol
+        Y = pt.matmat(C, torch.stack([x, 2 * x], 1))
+        assert _rel(Y[:, 1], 2 * y) <= tol
+
+
+def test_pcg_over_lowered_levels_takes_the_packs_iterations(cuda,
+                                                            monkeypatch):
+    """PCG + AMG(matrix_format="bws") on the card: the lowered hierarchy
+    against the same hierarchy packed on the card (the CPU's rule patched
+    in), the same iterations and answers within 1e-10."""
+    from pysolvers_tpu_torch.utils.timing import Timer
+    Ap, _ = _fem_hierarchy()
+    b = Ap.matvec(np.random.default_rng(7).random(Ap.shape[0]))
+
+    def run():
+        Timer.reset()
+        A_bws = BwsMatrix.from_host_csr(Ap, dtype=np.float64, use_rcm=False,
+                                        device=cuda)
+        st = pt.PCG(pt.CommonSolverArgs(maxiter=300, tau=1e-10),
+                    precond=pt.AMG(num_iters=2, num_levels=4,
+                                   galerkin="host", matrix_format="bws"),
+                    device=cuda).make_solver().solve((Ap, A_bws), b)
+        return st, Timer.calls("amg.csr_lowerings"), Timer.calls(
+            "amg.bws_packs")
+
+    st, lowered, packed = run()
+    assert lowered >= 3 and packed == 0
+    monkeypatch.setattr(tamg, "_lowers_to_csr", lambda device: False)
+    ref, lowered_ref, packed_ref = run()
+    assert lowered_ref == 0 and packed_ref == lowered
+    assert st.success and ref.success and st.iters == ref.iters
+    assert _rel(st.soln, ref.soln) <= 1e-10
+    Timer.reset()
+
+
+def test_lowered_hierarchy_replays_as_one_graph(cuda):
+    """After its eager first apply and its capture, every apply of a
+    preconditioner over lowered levels is a graph replay: the benchmark's
+    ``precond.graph_replay_share`` reads 100 %."""
+    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix
+    from pysolvers_tpu_torch.utils.timing import Timer
+    from solverbench.lib import spec as S
+    Ap, _ = _fem_hierarchy()
+    prec = pt.AMG(num_iters=2, num_levels=4, galerkin="host",
+                  matrix_format="bws").form(Ap, device=cuda)
+    assert any(isinstance(op, BwsCsrMatrix)
+               for op in _hierarchy_ops(prec.state))
+    v = torch.rand(Ap.shape[0], dtype=torch.float64, device=cuda)
+    first = [prec.apply_any(v) for _ in range(2)]    # eager, then capture
+    Timer.reset()
+    outs = [prec.apply_any(v) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert Timer.calls("amg.applies") == Timer.calls("amg.graph_replays") == 3
+    assert S.metric_reader("precond.graph_replay_share")(None) == 100.0
+    for out in outs:
+        assert _rel(out, first[0]) <= 1e-12
+    Timer.reset()
+
+
 # K4/K5: (nb, b, offsets, nb_pad) of random nonsymmetric planes, nonzero
 # also where i + off falls outside [0, nb), so only the per-dof mask passes
 BDIA_CASES = {
