@@ -992,8 +992,7 @@ def unstructured_path(device, m=1025, num_levels=4):
              f"{Timer.total('amg.host_hierarchy'):.3f} s + device lowering "
              f"{Timer.total('amg.device_lower'):.3f} s (of it the levels' "
              f"lowering to K2's layout {Timer.total('amg.csr_lower'):.3f} s"
-             f", {Timer.calls('amg.csr_lowerings')} matrices; BWS packs "
-             f"{Timer.calls('amg.bws_packs')}) + "
+             f", {Timer.calls('amg.csr_lowerings')} matrices) + "
              f"PCG; frozen re-solve {1e3 * solve_s:.3f} ms, the median of "
              f"{[round(1e3 * w, 3) for w in walls]} ({st2.iters} iters); "
              f"BWS products {products}, launches {counts} | "
@@ -1030,8 +1029,8 @@ def bws_operators(Ap, A_bws, solver, num_levels):
     is deterministic) to pack them in f32 as well.  The levels on the card
     are K2's layout alone (``BwsCsrMatrix``), with no pack for the twin to
     read: each is checked equal, in indptr, indices and values, to the
-    layout of the pack the CPU's route makes of its host operator, and
-    that pack stands in for it here."""
+    layout of the ``use_rcm=False`` pack of its host operator, and that
+    pack stands in for it here."""
     import torch
     from pysolvers_tpu_torch.linear.amg import build_sa_hierarchy
     from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, BwsMatrix
@@ -3346,7 +3345,7 @@ def device_sa(device):
     import pysolvers_tpu_torch as pt
     from pysolvers_tpu_torch import convert
     from pysolvers_tpu_torch.linear import amg as tamg
-    from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, BwsMatrix
     from pysolvers_tpu_torch.utils.timing import Timer
     card = card_line()
     A = pt.problems.fem_poisson_2d_unstructured(DH15_M, seed=3)
@@ -3365,7 +3364,7 @@ def device_sa(device):
         peak = peak_above(base)
         fine = h.levels[1]
         if not (fine.P_dev.device.type == h.A0_inv.device.type == device
-                and isinstance(fine.A_dev, BwsMatrix)):
+                and isinstance(fine.A_dev, (BwsMatrix, BwsCsrMatrix))):
             raise SystemExit(f"phase 31 {name}: the hierarchy is not the "
                              "card's with a BWS fine level")
         ref = jax_device_sa(name)
@@ -3433,7 +3432,7 @@ def device_sa(device):
         near(f"phase 31 {key}", st.iters, DEVICE_SA_ITERS[key])
         h = (solver._hierarchy if key == "vcycle device"
              else solver._formed_prec.state)
-        if not (isinstance(h.levels[-1].A_dev, BwsMatrix)
+        if not (isinstance(h.levels[-1].A_dev, (BwsMatrix, BwsCsrMatrix))
                 and h.levels[-1].P_dev.device.type == device
                 and sum(launches.values()) > 0):
             raise SystemExit(f"phase 31 {key}: the fine level is not a "
@@ -3490,7 +3489,7 @@ def gate_path(device):
     near("phase 32 solve()", st.iters, GATE_ITERS)
     launches = by_dtype(("K2",))
     # the fine level is BWS (K2) where it packs; this matrix's shuffled
-    # node numbering is too unbanded for a BWS window (window_fits says so
+    # node numbering is too unbanded for a BWS window (pack_fits says so
     # without packing), so it keeps the product operator (ELL), as the
     # JAX package's rule does
     fine_bws = split["device_bws"] > 0 and launches["K2 f64"] > 0

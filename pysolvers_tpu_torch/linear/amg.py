@@ -34,9 +34,12 @@ the hierarchy's device, within a memory gate on the dense prolongator.
 The cycle runs on the hierarchy's device as plain torch calls, with every
 DIA operator applied by kernel K1 on CUDA and every BWS operator by
 kernel K2: under ``matrix_format="bws"`` every host-built level operator
-and transfer of at least 2000 rows or columns (on CUDA lowered straight to
-K2's layout, with no pack), and on CUDA the device build's fine level; the
-preconditioner's apply replays those calls as one CUDA graph where it can
+and transfer of at least 2000 rows or columns, and on CUDA the device
+build's fine level.  Both setups bring a level into that lane by one
+rule, on every device (``sparse/bws.py::lower_to_csr``): its host CSR is
+lowered straight to K2's layout, with no pack; only the caller's own
+operand, reused as the fine level, is a pack.  The preconditioner's apply
+replays those calls as one CUDA graph where it can
 (``AMGPreconditionerType``).  What the JAX
 package chose by ``jax.default_backend()`` is chosen here by the
 hierarchy's ``device.type``: the "auto" smoother is "jacobi" on CUDA and
@@ -47,7 +50,7 @@ host otherwise.  Both setups store P, R and the level operators sparse; the
 coarsest level of two or more stores only ``A0_inv`` (its ``A_dev`` and
 ``dinv`` are None: the cycle reads nothing else there), taken in f64 on
 the host by the host setup and on the device by the device setup, then
-cast.  BWS packs take f32 and f64 alike (the JAX package's f32-only rule
+cast.  BWS levels take f32 and f64 alike (the JAX package's f32-only rule
 is a limit of its TPU compiler).
 
 ``mesh=`` (a ``parallel.mesh.Mesh``; JAX ``:374-380``, ``:515-519``): the
@@ -80,7 +83,7 @@ from ..core import SolverConfig, SolveStatus, StopReason, make_status
 from ..ops import matvec
 from ..ops.cuda_graph import GraphedApply
 from ..ops.trisolve import build_trisolve_plan, trisolve
-from ..sparse.bws import BwsCsrMatrix, BwsMatrix, pack_fits
+from ..sparse.bws import BwsMatrix, lower_to_csr
 from ..sparse.device import numpy_dtype, resolve_device, same_device
 from ..sparse.host import HostCSR
 from ..utils.timing import Timer, traced, tracing
@@ -317,7 +320,7 @@ def build_sa_hierarchy_device(A: HostCSR, num_levels: int = 2,
     P = (I − ω D_f⁻¹ A_f)·P̂, A_c = Pᵀ·A·P (R = Pᵀ) and the coarse inverse
     are dense device work (``parallel/amg_setup.py``): SA's one aggregate
     per row makes the dense-tall prolongator exact.  On CUDA the stored
-    fine level is a BWS pack for kernel K2 (``fine_format``).
+    fine level is K2's layout where a BWS window fits (``fine_format``).
 
     Memory gate: dense P is n×nc; beyond ``max_bytes`` it raises a
     ValueError (use ``build_sa_hierarchy``).  ``smoother`` "auto" is
@@ -359,11 +362,12 @@ def _resolve_galerkin(galerkin: str, device, smoother: str) -> str:
 _SMOOTHERS = ("jacobi", "gs", "sgs", "chebyshev")
 
 
-def _reject_unported(smoother: str = "auto", matrix_format: str = "auto",
-                     galerkin: str = "host", mesh=None,
-                     formats=("auto", "bws")):
-    """Raise for the options of the JAX AMG that wait for a later slice;
-    ``formats`` are the matrix formats the caller takes."""
+def _check_options(smoother: str = "auto", matrix_format: str = "auto",
+                   galerkin: str = "host", mesh=None,
+                   formats=("auto", "bws")):
+    """Raise for an unknown option, and for the smoothers and formats a
+    mesh cannot run; ``formats`` are the matrix formats the caller
+    takes."""
     if smoother not in ("auto",) + _SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}")
     if matrix_format not in formats:
@@ -470,14 +474,6 @@ def sharded_transfers(P_loc: HostCSR, mesh, dtype):
     return P_dev, SummedProduct(R_dev, mesh)
 
 
-def _lowers_to_csr(device) -> bool:
-    """True where a hierarchy's BWS-lane matrices are lowered straight to
-    K2's layout (``BwsCsrMatrix``) rather than packed: on a CUDA device,
-    where K2 reads nothing but that layout.  Tests monkeypatch it to run
-    that route on the CPU."""
-    return torch.device(device).type == "cuda"
-
-
 def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                            nu_pre: int = 2, nu_post: int = 2,
                            dtype=None, device=None, mesh=None,
@@ -495,19 +491,16 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
     banded (kernel K1 on CUDA), ELL otherwise.
 
     ``matrix_format="bws"`` puts every level operator and (rectangular)
-    transfer with max(shape) >= 2000 in the BWS lane, in identity order
-    (``use_rcm=False``), where its pack would take a window
+    transfer with max(shape) >= 2000 in the BWS lane, in identity order,
+    on every device: ``sparse/bws.py::lower_to_csr`` lowers it straight
+    to K2's layout, a ``BwsCsrMatrix`` (span "amg.csr_lower", counter
+    "amg.csr_lowerings"), where the JAX package's pack would take a window
     (``group_rows=32`` for square levels, the auto geometry for
-    transfers, ``gt="auto"``); a matrix too unbanded for one keeps the
-    auto format, as in the JAX package.  On CUDA such a matrix is lowered
-    straight to K2's layout, a ``BwsCsrMatrix`` (span "amg.csr_lower",
-    counter "amg.csr_lowerings"): K2 reads that layout alone, so no pack is
-    built, and ``pack_fits`` says without one whether the pack would have
-    been made.  On the CPU it is packed as the JAX package packs it, a
-    ``BwsMatrix`` run by the twin ("amg.bws_pack", "amg.bws_packs").
+    transfers); a matrix too unbanded for one keeps the auto format, as in
+    the JAX package.  K2 reads that layout alone, so no pack is built.
 
     ``fine_A_dev``: a device operator the caller already holds for the
-    finest level (e.g. the solver's BWS pack), reused instead of packing
+    finest level (e.g. the solver's BWS pack), reused instead of lowering
     the largest matrix again.  It must apply the fine host matrix in its
     own ordering (a BWS pack made with ``use_rcm=False``) and lie on
     ``device``.
@@ -516,7 +509,7 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
     and row-sharded over the mesh's ranks on the rank's device (module
     docstring); the transfers of the fine level are made from P alone (R
     = Pᵀ, which the SA and RS setups build)."""
-    _reject_unported(smoother, matrix_format, mesh=mesh)
+    _check_options(smoother, matrix_format, mesh=mesh)
     if mesh is not None:
         device = mesh.device
         if smoother == "auto":
@@ -536,31 +529,14 @@ def build_device_hierarchy(mlh: MLHierarchy, smoother: str = "auto",
                          f"hierarchy on {device}")
 
     def device_matrix(M: HostCSR):
-        """M on ``device``.  In the BWS lane (asked for, and M of 2000 rows
+        """M on ``device``: in the BWS lane (asked for, and M of 2000 rows
         or columns or more: below, it costs more than it saves) as K2's
-        layout alone on CUDA, where K2 reads nothing else, and as the JAX
-        package's pack on the CPU, where the twin reads the pack; a matrix
-        whose pack would overflow, and any other, in the auto format."""
+        layout where ``lower_to_csr`` takes it; a matrix whose pack would
+        overflow, and any other, in the auto format."""
         if matrix_format == "bws" and max(M.shape) >= 2000:
-            group_rows = 32 if M.shape[0] == M.shape[1] else None
-            if _lowers_to_csr(device):
-                with Timer("amg.csr_lower"):
-                    M_dev = (BwsCsrMatrix.from_host_csr(
-                        M, dtype=dtype or M.data.dtype, device=device)
-                        if pack_fits(M, group_rows) else None)
-                if M_dev is not None:
-                    Timer.count("amg.csr_lowerings")
-                    return M_dev
-            else:
-                try:
-                    with Timer("amg.bws_pack"):
-                        M_dev = BwsMatrix.from_host_csr(
-                            M, dtype=dtype or M.data.dtype, use_rcm=False,
-                            group_rows=group_rows, gt="auto", device=device)
-                    Timer.count("amg.bws_packs")
-                    return M_dev
-                except ValueError:
-                    pass    # too unbanded for a window — the auto format
+            M_dev = lower_to_csr(M, dtype or M.data.dtype, device)
+            if M_dev is not None:
+                return M_dev
         return as_device_matrix(M, dtype=dtype, device=device)[1]
 
     levels: List[DeviceLevel] = []
@@ -738,8 +714,8 @@ class AMGVCycle(IterativeLinearSolverType):
                  smoother: str = "auto", base_tol: float = 0.08, mesh=None,
                  matrix_format: str = "auto", galerkin: str = "host",
                  device=None):
-        _reject_unported(smoother, matrix_format, galerkin, mesh,
-                         formats=self.matrix_formats)
+        _check_options(smoother, matrix_format, galerkin, mesh,
+                       formats=self.matrix_formats)
         if mesh is not None and galerkin == "device":
             raise ValueError("galerkin='device' is the one-device builder "
                              "here; mesh= builds on the host (or use "
@@ -881,7 +857,7 @@ class AMGPreconditionerType(PreconditionerType):
                  base_tol: float = 0.08, side: str = "both",
                  galerkin: str = "auto", matrix_format: str = "auto",
                  device=None):
-        _reject_unported(smoother, matrix_format, galerkin)
+        _check_options(smoother, matrix_format, galerkin)
         self.num_iters = num_iters
         self.num_levels = num_levels
         self.nu_pre = nu_pre
@@ -901,8 +877,8 @@ class AMGPreconditionerType(PreconditionerType):
         mesh = getattr(A_dev, "mesh", None)
         n_pad = None
         if mesh is not None:
-            _reject_unported(self.smoother, self.matrix_format, self.galerkin,
-                             mesh)
+            _check_options(self.smoother, self.matrix_format, self.galerkin,
+                           mesh)
             device, n_pad = mesh.device, A_dev.n_pad
         device = resolve_device(self.device if self.device is not None
                                 else device)

@@ -56,6 +56,7 @@ from ..ops.trisolve import build_trisolve_plan, trisolve, trisolve_jacobi
 from ..sparse.bws import BwsMatrix
 from ..sparse.device import resolve_device
 from ..sparse.host import HostCSR
+from ..utils.cache import fifo_put
 from .preconditioner import Preconditioner, PreconditionerType
 
 TRISOLVE_MODES = ("auto", "level", "jacobi", "jacobi_bws", "block")
@@ -346,9 +347,7 @@ def _resolve_drop_scale(kind: str, A: HostCSR, drop_tol: float,
             break
         s_prev, total_prev = s, total
         s, total, res = s_next, total_n, res_n
-    if len(_SCALE_CACHE) > 64:
-        _SCALE_CACHE.pop(next(iter(_SCALE_CACHE)))
-    _SCALE_CACHE[key] = s
+    fifo_put(_SCALE_CACHE, key, s, 65)
     return res
 
 

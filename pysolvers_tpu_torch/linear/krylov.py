@@ -27,7 +27,7 @@ which counts it ("host_reads") and, while the profiler runs, spans it
 directly, every other read calls it through ``_host``, which tests patch
 to count the reads of GMRES, the replacement solvers and the refinement
 passes.  Capturing the iteration in a CUDA graph, and checking the reason
-less often, is later work (ROADMAP queue 4).
+less often, is later work (ROADMAP.md, queue 4 item 1).
 
 While the profiler runs, ``cg_solve`` is the span "krylov.cg" and each of
 its iterations, the stop read included, "krylov.cg_iter"

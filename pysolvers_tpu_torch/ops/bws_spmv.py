@@ -8,7 +8,7 @@ Port of ``pysolvers_tpu/ops/bws_spmv.py``:
   holds.  The JAX package runs the segment classes (K3) when the slots
   they skip pay for the extra calls; the device CSR has no padded slots,
   so on the card the classes only add launches.  A ``BwsCsrMatrix`` (the
-  layout alone, an AMG level lowered on CUDA) takes the same launch,
+  layout alone, an AMG hierarchy's level) takes the same launch,
   counted the same way; on the CPU its product is
   ``bws_csr_spmv_torch``.
 * ``bws_spmv_by_class(A, x)`` — the wrapper of kernel K3: the same

@@ -360,8 +360,8 @@ def matvec(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for any device format of the port.
 
     A BwsMatrix operates in its packed ordering (the identity when packed
-    with use_rcm=False, as AMG hierarchies are), a BwsCsrMatrix (an AMG
-    level lowered on CUDA) in its host matrix's, both by ``bws_spmv``; a
+    with use_rcm=False, as a hierarchy's fine operand is), a BwsCsrMatrix
+    (an AMG hierarchy's level) in its host matrix's, both by ``bws_spmv``; a
     BdiaMatrix in planar ordering."""
     if isinstance(A, DiaMatrix):
         return dia_spmv(A, x)

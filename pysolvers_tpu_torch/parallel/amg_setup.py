@@ -66,7 +66,7 @@ from ..linear.amg import (DEVICE_SMOOTHERS, DeviceHierarchy, DeviceLevel,
                           build_aggregates, filtered_matrix,
                           strength_neighbors)
 from ..ops.spmv import dia_spmm
-from ..sparse.bws import BwsMatrix, window_fits
+from ..sparse.bws import lower_to_csr
 from ..sparse.device import (DiaMatrix, EllMatrix, resolve_device,
                              torch_dtype)
 from ..sparse.host import HostCSR
@@ -272,13 +272,15 @@ def build_distributed_hierarchy(A_host: HostCSR, mesh=None, *,
 
     ``fine_format``: the stored fine-level operator, the one every
     smoothing product of the V-cycle runs on (the construction products
-    keep the DIA/ELL operator).  "bws" packs it as BWS (kernel K2 on CUDA)
-    where it packs; "auto" does so on CUDA (``api._bws_route``), in f32
-    and f64, where ``window_fits`` admits the matrix, and keeps the
-    product operator on the CPU; any other value keeps the product
-    operator.  The coarse inverse is taken on ``device`` (the JAX
-    package's ``coarse_inverse="host"``, which no caller passes, is not
-    ported).
+    keep the DIA/ELL operator).  "bws" brings it into the BWS lane (kernel
+    K2 on CUDA) by the rule every hierarchy's levels take
+    (``sparse/bws.py::lower_to_csr``, ``group_rows`` 32): K2's layout where
+    the JAX package's pack would take a window, the product operator where
+    it would not; "auto" does so on CUDA (``api._bws_route``), in f32 and
+    f64, and keeps the product operator on the CPU; any other value keeps
+    the product operator.  The coarse inverse is taken on ``device`` (the
+    JAX package's ``coarse_inverse="host"``, which no caller passes, is
+    not ported).
 
     ``mesh``: a ``parallel.mesh.Mesh``; the fine level is padded to
     ``n_pad`` rows (default: a multiple of lcm(8, d)) and row-sharded on
@@ -292,7 +294,7 @@ def build_distributed_hierarchy(A_host: HostCSR, mesh=None, *,
     Timers: "amg.device_aggregate" (host aggregation and filtering),
     "amg.device_products" (the products, synchronized), "amg.device_sparse"
     (the stored transfers and operators), "amg.device_bws" (the fine
-    pack), "amg.device_inverse" (synchronized)."""
+    level's lowering), "amg.device_inverse" (synchronized)."""
     if smoother not in DEVICE_SMOOTHERS:
         raise ValueError(f"distributed setup provides jacobi/chebyshev "
                          f"smoothing, not {smoother!r} (GS and SGS need "
@@ -387,16 +389,11 @@ def build_distributed_hierarchy(A_host: HostCSR, mesh=None, *,
             cheb = (0.5 * (lmax + lmin), 0.5 * (lmax - lmin))
         want_bws = not sharded and (fine_format == "bws"
                     or (fine_format == "auto" and lvl == 0
-                        and api._bws_route(device)
-                        and window_fits(A_cur_host, 32)))
+                        and api._bws_route(device)))
         if want_bws and A_cur_dense is None:
-            try:
-                with Timer("amg.device_bws"):
-                    A_store = BwsMatrix.from_host_csr(
-                        A_cur_host, dtype=dtype, use_rcm=False,
-                        group_rows=32, gt="auto", device=device)
-            except ValueError:
-                pass                      # too unbanded: the product op
+            with Timer("amg.device_bws"):
+                # None where too unbanded: the product operator stays
+                A_store = lower_to_csr(A_cur_host, dtype, device) or A_store
         levels.append(DeviceLevel(A_store, dinv_op, None, P_dev, R_dev,
                                   cheb))
         A_cur_host = None

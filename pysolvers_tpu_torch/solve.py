@@ -87,6 +87,7 @@ from .ops.spmv import bdia_spmm_rows, bdia_spmv, matmat, per_vector
 from .sparse.bdia import BdiaMatrix, detect_block_size
 from .sparse.device import numpy_dtype, resolve_device, same_device
 from .sparse.host import HostCSR
+from .utils.cache import fifo_put
 
 
 def _is_symmetric(A: HostCSR, rtol: float = 1e-10) -> bool:
@@ -330,10 +331,8 @@ def _bdia_cached(A: BdiaMatrix, key, make):
     if (ent is None or ent["planes"] is not A.planes
             or ent["version"] != A.planes._version):
         _BDIA_SOLVE_CACHE.pop(id(A.planes), None)
-        if len(_BDIA_SOLVE_CACHE) >= 8:
-            _BDIA_SOLVE_CACHE.pop(next(iter(_BDIA_SOLVE_CACHE)))
-        ent = {"planes": A.planes, "version": A.planes._version}
-        _BDIA_SOLVE_CACHE[id(A.planes)] = ent
+        ent = fifo_put(_BDIA_SOLVE_CACHE, id(A.planes),
+                       {"planes": A.planes, "version": A.planes._version}, 8)
     if key not in ent:
         ent[key] = make()
     return ent[key]
@@ -677,7 +676,5 @@ def _cached_mixed_solver(A: HostCSR, method: str, precond: str, tau: float,
                         restart=restart, device=device)
     s = factory.make_solver()
     s.freeze_matrix()
-    if len(_MIXED_CACHE) >= 8:
-        _MIXED_CACHE.pop(next(iter(_MIXED_CACHE)))
-    _MIXED_CACHE[key] = (A, s)
+    fifo_put(_MIXED_CACHE, key, (A, s), 8)
     return s

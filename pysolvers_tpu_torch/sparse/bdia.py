@@ -27,11 +27,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.cache import fifo_put
 from .device import _round_up, numpy_dtype, resolve_device, torch_dtype
 from .host import HostCSR
 
 # structure-keyed layout plans (block offsets + per-nnz scatter targets),
-# bounded as in the JAX package
+# bounded as in the JAX package: at most 17 entries, the oldest dropped first
 _BDIA_PLAN_CACHE: dict = {}
 
 
@@ -142,9 +143,7 @@ class BdiaMatrix:
             # flat scatter target into (n_boffs·b [d,q], b [p], nb_pad)
             flat = ((d_idx * b + q) * b + p) * nb_pad + br
             ent = (tuple(int(o) for o in boffs), flat.astype(np.int64))
-            if len(_BDIA_PLAN_CACHE) > 16:
-                _BDIA_PLAN_CACHE.pop(next(iter(_BDIA_PLAN_CACHE)))
-            _BDIA_PLAN_CACHE[key] = ent
+            fifo_put(_BDIA_PLAN_CACHE, key, ent, 17)
         boffs, flat = ent
         planes = np.zeros(len(boffs) * b * b * nb_pad, dtype=dtype)
         planes[flat] = A.data

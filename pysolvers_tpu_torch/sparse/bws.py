@@ -28,19 +28,18 @@ on the device by ``bws_device_csr`` when the matrix is made, with the
 row-block partition that kernels K2/K3 (``csrc/bws_spmv.cu``) walk.  A
 CPU matrix carries none; its product is the twin over the pack.
 
-Two routes reach that layout, by the device:
-
-* on CUDA, a matrix that an AMG hierarchy would pack
-  (``linear/amg.py::build_device_hierarchy``) is lowered straight from
-  its host CSR to a ``BwsCsrMatrix``: the layout alone, with no pack
-  built and no padded table uploaded.  K2 reads nothing else, and a
-  hierarchy's coarse patterns follow its aggregates, so the pack's
-  structure cache would not spare a rebuild.  ``pack_fits`` gives, in
-  O(nnz) and without a pack, whether the pack would have been made, so
-  that a matrix too unbanded for a window keeps the auto format as before;
-* on the CPU, and for every operand a caller packs itself, the pack stays
-  (``BwsMatrix``), so that the CPU levels are the JAX package's packs bit
-  for bit and run the twin.
+An AMG hierarchy's levels and transfers reach that layout by one rule, on
+every device: ``lower_to_csr`` lowers a level's host CSR straight to a
+``BwsCsrMatrix`` (the layout alone: no pack built, no padded table
+uploaded) where ``pack_fits`` says, in O(nnz) and without a pack, that
+the pack would be made, and gives None where it would not, so that a
+matrix too unbanded for a window keeps its other format.  Both hierarchy
+setups call it (``linear/amg.py::build_device_hierarchy``,
+``parallel/amg_setup.py``).  K2 reads nothing else, and a hierarchy's
+coarse patterns follow its aggregates, so the pack's structure cache would
+not spare a rebuild.  The pack (``BwsMatrix``) stays for the operands a
+caller packs itself (a hierarchy reuses one as its fine level), for the
+mixed route and for hierarchies carried over from the JAX package.
 
 The geometry model (``STEP_COST_SLOTS`` … ``SELECT_DIV_FAST``) is the JAX
 package's, measured there for its TPU kernel (per-step, per-call and
@@ -73,6 +72,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.cache import fifo_put
+from ..utils.timing import Timer
 from .device import numpy_dtype, resolve_device
 from .host import HostCSR
 
@@ -221,20 +222,6 @@ def _rcm_perm(H: HostCSR):
     return np.asarray(p, dtype=np.int64) if p is not None else None
 
 
-def window_fits(H: HostCSR, group_rows: int = DEFAULT_GROUP_ROWS) -> bool:
-    """False where H, in its own ordering, cannot take a BWS window at
-    ``group_rows``: already the smallest tile the pack can choose spans
-    more column blocks than ``_pack`` allows, and a larger tile spans at
-    least as many.  O(nnz), without packing; True does not promise that
-    the pack succeeds."""
-    if H.nnz == 0:
-        return True
-    tile_rows = min(g * group_rows for g in (8, 16, 32, 64, 128)
-                    if (g * group_rows) % 128 == 0)
-    return (_tile_windows(H, [tile_rows])[tile_rows]
-            <= max(256, _ceil_to(H.shape[1], 128) // 128 // 2))
-
-
 def _tile_windows(H: HostCSR, tile_rows) -> dict:
     """{rows per tile: the window, in column blocks, that ``_pack`` gives
     tiles of that many rows in H's own ordering}, for tile sizes that are
@@ -277,8 +264,7 @@ def pack_fits(H: HostCSR, group_rows: Optional[int] = None) -> bool:
 
     Every group count is a multiple of ``GT``, so each tile size whose
     rows are a multiple of 128 is a candidate.  Stored zeros count, as
-    their slots do in the pack.  O(nnz) otherwise; ``window_fits`` is the
-    smallest tile's test alone."""
+    their slots do in the pack.  O(nnz) otherwise."""
     if H.nnz == 0:
         return False
     n, n_cols = H.shape
@@ -329,9 +315,8 @@ def pack_arrays(H: HostCSR, dtype=np.float32, use_rcm: bool = True,
         for a in (pos, order, *(v for v in arrs.values()
                                 if isinstance(v, np.ndarray))):
             a.flags.writeable = False
-        if len(_PACK_CACHE) >= PACK_CACHE_SIZE:
-            _PACK_CACHE.pop(next(iter(_PACK_CACHE)))
-        ent = _PACK_CACHE[key] = (arrs, pos, order)
+        ent = fifo_put(_PACK_CACHE, key, (arrs, pos, order),
+                       PACK_CACHE_SIZE)
     arrs, pos, order = ent
     data = np.zeros(arrs["data_shape"], dtype=dtype)
     data.reshape(-1)[pos] = H.data[order]
@@ -809,13 +794,12 @@ class BwsCsrMatrix:
     """A matrix in the card's layout of the BWS lane (``BwsCsr``) alone,
     with no pack: what K2 reads, lowered straight from a host CSR.
 
-    The AMG hierarchy's levels and transfers take it on CUDA
-    (``linear/amg.py::build_device_hierarchy``): K2 never reads a pack, so
-    packing them (a geometry search, sorts, segment tables, 4–5× the
-    nonzeros in padded slots, uploaded and turned back into this CSR on
-    the card) would only cost time.  On the CPU those levels stay ``BwsMatrix``
-    packs, the JAX package's, and this type runs a plain product over the
-    layout (``ops/bws_spmv.py::bws_csr_spmv_torch``).
+    Every AMG hierarchy's BWS-lane levels and transfers take it, on every
+    device (``lower_to_csr``): K2 never reads a pack, so packing them (a
+    geometry search, sorts, segment tables, 4–5× the nonzeros in padded
+    slots, uploaded and turned back into this CSR on the card) would only
+    cost time.  On the CPU its product is a plain one over the layout
+    (``ops/bws_spmv.py::bws_csr_spmv_torch``).
 
     Its indptr, indices and values are those of ``bws_device_csr`` of the
     ``use_rcm=False`` pack of the same matrix and type, bit for bit: the
@@ -883,3 +867,19 @@ class BwsCsrMatrix:
                      row_block_table(ptr, CSR_TILE_ROWS),
                      torch.zeros(0, dtype=torch.int32, device=device), ())
         return BwsCsrMatrix(tuple(int(s) for s in H.shape), csr)
+
+
+def lower_to_csr(H: HostCSR, dtype, device) -> Optional[BwsCsrMatrix]:
+    """An AMG level's operator or transfer H in the BWS lane: a
+    ``BwsCsrMatrix`` on ``device`` where ``pack_fits`` holds (its
+    ``group_rows`` 32 for a square H, the auto geometry for a transfer),
+    None where the pack would refuse H and the caller keeps the format it
+    has.  The span "amg.csr_lower" times the test and the lowering; the
+    counter "amg.csr_lowerings" counts the matrices lowered."""
+    group_rows = DEFAULT_GROUP_ROWS if H.shape[0] == H.shape[1] else None
+    with Timer("amg.csr_lower"):
+        if not pack_fits(H, group_rows):
+            return None
+        M = BwsCsrMatrix.from_host_csr(H, dtype=dtype, device=device)
+    Timer.count("amg.csr_lowerings")
+    return M

@@ -15,7 +15,8 @@ from __future__ import annotations
 import dataclasses
 import numpy as np
 
-# structure-keyed symmetric-permutation plans (HostCSR.permute_symmetric)
+# structure-keyed symmetric-permutation plans (HostCSR.permute_symmetric);
+# at most 33 entries, the oldest dropped first
 _PERM_CACHE: dict = {}
 
 
@@ -129,6 +130,7 @@ class HostCSR:
         ent = _PERM_CACHE.get(key)
         if ent is None:
             n = self.shape[0]
+            from ..utils.cache import fifo_put
             from ..utils.native import csr_permute_plan
             ent = csr_permute_plan(self.indptr, self.indices, perm)
             if ent is None:         # no native lib: numpy fallback
@@ -142,9 +144,7 @@ class HostCSR:
                 indptr = np.zeros(n + 1, dtype=np.int64)
                 np.cumsum(np.bincount(r2, minlength=n), out=indptr[1:])
                 ent = (order, indptr, c2[order].astype(np.int32))
-            if len(_PERM_CACHE) > 32:
-                _PERM_CACHE.pop(next(iter(_PERM_CACHE)))
-            _PERM_CACHE[key] = ent
+            fifo_put(_PERM_CACHE, key, ent, 33)
         order, indptr, indices = ent
         return HostCSR(indptr, indices, self.data[order], self.shape)
 

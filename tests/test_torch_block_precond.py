@@ -12,7 +12,7 @@ the JAX package, on the same seeded inputs, in f64.
   single-RHS solve.
 * The HostCSR auto-route takes the block lane (K4's twin runs, no scalar
   AMG hierarchy is built) and ``detect_blocks=False`` keeps the scalar
-  route; every unported option raises and names its slice.
+  route; every invalid option raises and names what to pass instead.
 """
 import importlib
 
@@ -33,6 +33,7 @@ from pysolvers_tpu_torch.linear import block_precond as tbp
 from pysolvers_tpu_torch.linear.krylov import cg_solve, cg_solve_multi_rows
 from pysolvers_tpu_torch.ops import spmv
 from pysolvers_tpu_torch.sparse.bdia import BdiaMatrix
+from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix
 
 torch.set_num_threads(1)
 # the module, not the function the package exports under the same name
@@ -129,7 +130,7 @@ def test_bmg_takes_the_f32_bws_levels():
     A = BdiaMatrix.from_host_csr(H, 2, dtype=np.float32, device="cpu")
     prec = tbp.BlockMGBdiaPreconditionerType().form(A_dev=A)
     assert len(prec.state) == 2
-    assert isinstance(prec.state[0].levels[-1].A_dev, pt.BwsMatrix)
+    assert isinstance(prec.state[0].levels[-1].A_dev, BwsCsrMatrix)
     y = prec.apply_any(torch.ones(A.n_rows, dtype=torch.float32))
     assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
 
@@ -277,7 +278,7 @@ def test_precond_cache_reuses_and_sees_in_place_updates():
 # (tests/test_torch_mixed_block.py); GMRES with k columns is refused (the
 # JAX package runs CG there) and names method="cg"; mesh= is ported
 # (tests/test_torch_mesh_factory.py) and takes only a port Mesh
-UNPORTED = {
+INVALID = {
     "mixed": (dict(precision="mixed", mesh=object()), None,
               TypeError, "make_mesh"),
     "gmres": (dict(method="gmres"), 2, ValueError, 'method="cg"'),
@@ -287,10 +288,10 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("route", sorted(UNPORTED))
-def test_unported_block_routes_raise(route):
+@pytest.mark.parametrize("route", sorted(INVALID))
+def test_invalid_block_options_raise(route):
     H, A, _ = _pair(6, 2)
-    kwargs, k, error, match = UNPORTED[route]
+    kwargs, k, error, match = INVALID[route]
     b = np.ones(H.shape[0]) if k is None else np.ones((H.shape[0], k))
     with pytest.raises(error, match=match):
         pt.solve(A, b, **kwargs)

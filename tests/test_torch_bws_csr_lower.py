@@ -1,23 +1,22 @@
 """An AMG hierarchy's BWS-lane matrices lowered straight to K2's layout
-(``sparse/bws.py::BwsCsrMatrix``, ``pack_fits``;
-``linear/amg.py::build_device_hierarchy`` on CUDA), checked on the CPU:
+(``sparse/bws.py::lower_to_csr``: a ``BwsCsrMatrix`` where ``pack_fits``
+holds), the one route on every device, checked on the CPU:
 
 * the layout of every level and transfer of a small FEM SA hierarchy
   (``fem_poisson_2d_unstructured(65)``, RCM, AMG(2, 4)) is, bit for bit in
-  indptr, indices and values, ``bws_device_csr`` of the pack
-  ``device_matrix`` makes on the CPU (``use_rcm=False``, ``group_rows``
-  32 for square levels and auto for transfers, ``gt="auto"``), in f32 and
-  f64; its row blocks keep ``row_block_table``'s budget; stored zeros are
-  dropped and unsorted columns come out ascending;
+  indptr, indices and values, ``bws_device_csr`` of the JAX package's pack
+  of the same matrix (``use_rcm=False``, ``group_rows`` 32 for square
+  levels and auto for transfers, ``gt="auto"``), in f32 and f64; its row
+  blocks keep ``row_block_table``'s budget; stored zeros are dropped and
+  unsorted columns come out ascending;
 * ``pack_fits`` is "``pack_arrays`` does not raise" on every matrix of
   that hierarchy, on square matrices whose window fits at some tiles and
   not at others (the cost model's pick decides), on a rectangular and a
   square matrix built to overflow the window, and on empty patterns;
-* on the CPU the hierarchy keeps its packs and counts them; with the
-  card's rule (``_lowers_to_csr``) patched in, the same hierarchy lowers
-  every such matrix to the layout, packs none, keeps the auto format
-  where the pack would overflow, and its V-cycle and PCG solve agree
-  with the packed one;
+* the hierarchy lowers every such matrix to the layout, counts
+  "amg.csr_lowerings" and packs none, keeps the auto format where the
+  pack would overflow, and its V-cycle and PCG solve agree with the auto
+  format's and with the same hierarchy over packs;
 * the products of the layout on the CPU (``bws_csr_spmv_torch`` through
   ``matvec``/``matmat``) against the host product, with no launch;
 * the benchmark's reader of ``amg_setup.csr_lower_share``.
@@ -31,6 +30,7 @@ import pysolvers_tpu_torch.linear.amg as tamg
 from pysolvers_tpu_torch.ops import bws_spmv as tbws
 from pysolvers_tpu_torch.sparse.bws import (CSR_TILE_ROWS, ROW_BLOCK_WINDOW,
                                             BwsCsrMatrix, BwsMatrix,
+                                            _ceil_to, _tile_windows,
                                             bws_device_csr, pack_arrays,
                                             pack_fits)
 from pysolvers_tpu_torch.sparse.host import HostCSR
@@ -218,12 +218,14 @@ def test_pack_fits_is_whether_the_pack_is_made(case):
 
 
 def test_the_zigzag_cases_need_the_cost_model():
-    """Where small tiles fit and large ones do not, ``window_fits`` (the
-    smallest tile alone) says yes and the pack may still refuse."""
-    from pysolvers_tpu_torch.sparse.bws import window_fits
+    """Where small tiles fit and large ones do not, the smallest tile the
+    pack can choose at ``group_rows`` 32 (8 groups, 256 rows) takes a
+    window and the pack may still refuse."""
     for case in ("zigzag_large_tile", "zigzag_light_heavy"):
         H = PREDICATE_CASES[case][0]()
-        assert window_fits(H, 32) and not pack_fits(H, 32)
+        limit = max(256, _ceil_to(H.shape[1], 128) // 128 // 2)
+        assert _tile_windows(H, [256])[256] <= limit
+        assert not pack_fits(H, 32)
     picks = {case: pack_arrays(PREDICATE_CASES[case][0](), np.float64,
                                False, 32, False, "auto")["gt"]
              for case in ("zigzag_picks_64", "zigzag_picks_32",
@@ -241,29 +243,19 @@ def _ops(h):
     return [op for L in h.levels[1:] for op in (L.A_dev, L.P_dev, L.R_dev)]
 
 
-def test_cpu_hierarchy_keeps_its_packs(clean_timers):
-    h = _hierarchy()
-    ops = _ops(h)
-    packed = [op for op in ops if isinstance(op, BwsMatrix)]
-    assert packed and all(isinstance(op, BwsMatrix)
-                          == (max(op.shape) >= 2000) for op in ops)
-    assert not any(isinstance(op, BwsCsrMatrix) for op in ops)
-    assert Timer.calls("amg.bws_packs") == len(packed)
-    assert Timer.calls("amg.bws_pack") == len(packed)
-    assert Timer.calls("amg.csr_lowerings") == 0
-    assert Timer.calls("amg.csr_lower") == 0
+def _hosts(mlh):
+    """The host matrices of ``_ops``, in its order."""
+    return [M for k in range(1, mlh.n_levels) for M in (
+        mlh.matrices[k], mlh.prolongators[k - 1], mlh.restrictions[k - 1])]
 
 
-@pytest.fixture
-def card_rule(monkeypatch):
-    """The card's lowering rule on the CPU."""
-    monkeypatch.setattr(tamg, "_lowers_to_csr", lambda device: True)
+def _packed_counters():
+    return [name for name, n in Timer._counts.items() if "pack" in name and n]
 
 
-def test_card_rule_lowers_every_bws_matrix(monkeypatch, clean_timers):
-    ref = _hierarchy()
-    Timer.reset()
-    monkeypatch.setattr(tamg, "_lowers_to_csr", lambda device: True)
+def test_cpu_hierarchy_lowers_every_bws_matrix(clean_timers):
+    """On the CPU as on the card, every level and transfer of the BWS lane
+    is K2's layout, counted by "amg.csr_lowerings"; nothing is packed."""
     h = _hierarchy()
     ops = _ops(h)
     lowered = [op for op in ops if isinstance(op, BwsCsrMatrix)]
@@ -272,20 +264,28 @@ def test_card_rule_lowers_every_bws_matrix(monkeypatch, clean_timers):
     assert not any(isinstance(op, BwsMatrix) for op in ops)
     assert Timer.calls("amg.csr_lowerings") == len(lowered)
     assert Timer.calls("amg.csr_lower") == len(lowered)
-    assert Timer.calls("amg.bws_packs") == 0
-    assert Timer.calls("amg.bws_pack") == 0
-    # each level's layout is the CPU pack's
-    for a, b in zip(_ops(h), _ops(ref)):
-        if isinstance(a, BwsCsrMatrix):
-            L = bws_device_csr(b)
-            for f in ("indptr", "indices", "values"):
-                assert torch.equal(getattr(a.csr, f), getattr(L, f))
+    assert _packed_counters() == []
+
+
+def test_card_rule_lowers_every_bws_matrix(clean_timers):
+    """Each lowered level and transfer is, in indptr, indices and values,
+    ``bws_device_csr`` of the pack the JAX package makes of its host
+    matrix."""
+    h = _hierarchy()
+    pairs = [(op, M) for op, M in zip(_ops(h), _hosts(MLH))
+             if isinstance(op, BwsCsrMatrix)]
+    assert len(pairs) == Timer.calls("amg.csr_lowerings") > 0
+    for op, M in pairs:
+        assert op.shape == tuple(M.shape)
+        L = bws_device_csr(_pack(M, np.float64))
+        for f in ("indptr", "indices", "values"):
+            assert torch.equal(getattr(op.csr, f), getattr(L, f))
 
 
 def test_card_rule_keeps_the_auto_format_where_the_pack_overflows(
-        monkeypatch, clean_timers):
-    """A level whose pack would overflow is ELL on both routes; its
-    transfers, which fit, take each route's BWS type."""
+        clean_timers):
+    """A level whose pack would overflow keeps the auto format (ELL); its
+    transfers, which fit, are lowered."""
     n = 40000
     i = np.arange(n)
     H = HostCSR.from_coo(np.concatenate([i, i]),
@@ -294,18 +294,16 @@ def test_card_rule_keeps_the_auto_format_where_the_pack_overflows(
     assert not pack_fits(H, 32) and not _packs(H)
     P = HostCSR.from_coo(i, i // 200, np.ones(n), (n, 200))
     mlh = tamg.MLHierarchy([HostCSR.eye(200), H], [P], [P.transpose()])
-    for rule, kind in ((True, BwsCsrMatrix), (False, BwsMatrix)):
-        monkeypatch.setattr(tamg, "_lowers_to_csr", lambda device: rule)
-        h = tamg.build_device_hierarchy(mlh, "jacobi", dtype=np.float64,
-                                        device="cpu", matrix_format="bws")
-        assert isinstance(h.levels[1].A_dev, pt.EllMatrix)
-        assert isinstance(h.levels[1].P_dev, kind)
-        assert isinstance(h.levels[1].R_dev, kind)
-    assert Timer.calls("amg.csr_lowerings") == 2     # P and R, the card's
-    assert Timer.calls("amg.bws_packs") == 2         # P and R, the CPU's
+    h = tamg.build_device_hierarchy(mlh, "jacobi", dtype=np.float64,
+                                    device="cpu", matrix_format="bws")
+    assert isinstance(h.levels[1].A_dev, pt.EllMatrix)
+    assert isinstance(h.levels[1].P_dev, BwsCsrMatrix)
+    assert isinstance(h.levels[1].R_dev, BwsCsrMatrix)
+    assert Timer.calls("amg.csr_lowerings") == 2     # P and R
+    assert Timer.calls("amg.csr_lower") == 3         # A tested, not lowered
 
 
-def test_card_rule_v_cycle_matches_the_packs(card_rule):
+def test_card_rule_v_cycle_matches_the_packs():
     h = _hierarchy()
     ref = tamg.build_device_hierarchy(MLH, "jacobi", dtype=np.float64,
                                       device="cpu", matrix_format="auto")
@@ -319,6 +317,9 @@ def test_card_rule_v_cycle_matches_the_packs(card_rule):
 @pytest.mark.parametrize("precision", ["native", "mixed"])
 def test_card_rule_pcg_takes_the_packs_iterations(precision, monkeypatch,
                                                   clean_timers):
+    """The lowered hierarchy against the same hierarchy over the JAX
+    package's packs (the rule's layout swapped for the pack): the same
+    iterations, answers within 1e-8."""
     b = FEM.matvec(np.random.default_rng(7).random(FEM.shape[0]))
 
     def run():
@@ -329,14 +330,20 @@ def test_card_rule_pcg_takes_the_packs_iterations(precision, monkeypatch,
                       precision=precision, device="cpu").make_solver().solve(
             FEM, b)
 
-    ref = run()
-    assert Timer.calls("amg.bws_packs") > 0
-    assert Timer.calls("amg.csr_lowerings") == 0
-    Timer.reset()
-    monkeypatch.setattr(tamg, "_lowers_to_csr", lambda device: True)
     st = run()
     assert Timer.calls("amg.csr_lowerings") > 0
-    assert Timer.calls("amg.bws_packs") == 0
+    Timer.reset()
+    packs = []
+
+    def pack_instead(H, dtype, device):
+        if not pack_fits(H, _group_rows(H)):
+            return None
+        packs.append(_pack(H, dtype))
+        return packs[-1]
+
+    monkeypatch.setattr(tamg, "lower_to_csr", pack_instead)
+    ref = run()
+    assert packs and Timer.calls("amg.csr_lowerings") == 0
     assert st.success and ref.success and st.iters == ref.iters
     x, xr = st.soln.numpy(), ref.soln.numpy()
     assert np.linalg.norm(x - xr) <= 1e-8 * np.linalg.norm(xr)

@@ -37,7 +37,7 @@ from pysolvers_tpu_torch.linear import ilu as tilu
 from pysolvers_tpu_torch.ops import block_trisolve as tbt
 from pysolvers_tpu_torch.ops import bws_spmv as tbws
 from pysolvers_tpu_torch.ops import probe, spmv
-from pysolvers_tpu_torch.sparse.bws import BwsMatrix
+from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, BwsMatrix
 from pysolvers_tpu_torch.sparse.device import DiaMatrix
 from pysolvers_tpu_torch.sparse.host import HostCSR
 
@@ -389,7 +389,6 @@ def test_cuda_hierarchy_lowers_every_bws_matrix_to_the_layout(cuda):
     """On the card every BWS-lane level and transfer is a BwsCsrMatrix whose
     indptr, indices and values are the card-built pack's layout, bit for
     bit; nothing is packed."""
-    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix
     from pysolvers_tpu_torch.utils.timing import Timer
     _, mlh = _fem_hierarchy()
     Timer.reset()
@@ -401,7 +400,7 @@ def test_cuda_hierarchy_lowers_every_bws_matrix_to_the_layout(cuda):
     assert all(isinstance(op, BwsCsrMatrix) == (max(op.shape) >= 2000)
                for op in ops)
     assert Timer.calls("amg.csr_lowerings") == len(lowered)
-    assert Timer.calls("amg.bws_packs") == 0
+    assert not [k for k, c in Timer._counts.items() if "pack" in k and c]
     hosts = [M for k in range(1, mlh.n_levels) for M in (
         mlh.matrices[k], mlh.prolongators[k - 1], mlh.restrictions[k - 1])]
     for op, M in zip(ops, hosts):
@@ -423,7 +422,6 @@ def test_k2_over_the_layout_matches_the_pack_route(cuda, dtype):
     answer within 1e-14 (f64) of max|y|: the same CSR, cut into other row
     blocks."""
     from pysolvers_tpu_torch.ops import _cuda_build
-    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix
     _, mlh = _fem_hierarchy()
     tol = {torch.float64: 1e-14, torch.float32: 1e-6}[dtype]
     np_dt = np.float64 if dtype == torch.float64 else np.float32
@@ -451,8 +449,10 @@ def test_k2_over_the_layout_matches_the_pack_route(cuda, dtype):
 def test_pcg_over_lowered_levels_takes_the_packs_iterations(cuda,
                                                             monkeypatch):
     """PCG + AMG(matrix_format="bws") on the card: the lowered hierarchy
-    against the same hierarchy packed on the card (the CPU's rule patched
-    in), the same iterations and answers within 1e-10."""
+    against the same hierarchy over explicit ``use_rcm=False`` packs made
+    on the card (each read by K2 through its ``bws_device_csr``), the same
+    iterations and answers within 1e-10."""
+    from pysolvers_tpu_torch.sparse.bws import pack_fits
     from pysolvers_tpu_torch.utils.timing import Timer
     Ap, _ = _fem_hierarchy()
     b = Ap.matvec(np.random.default_rng(7).random(Ap.shape[0]))
@@ -465,14 +465,24 @@ def test_pcg_over_lowered_levels_takes_the_packs_iterations(cuda,
                     precond=pt.AMG(num_iters=2, num_levels=4,
                                    galerkin="host", matrix_format="bws"),
                     device=cuda).make_solver().solve((Ap, A_bws), b)
-        return st, Timer.calls("amg.csr_lowerings"), Timer.calls(
-            "amg.bws_packs")
+        return st, Timer.calls("amg.csr_lowerings")
 
-    st, lowered, packed = run()
-    assert lowered >= 3 and packed == 0
-    monkeypatch.setattr(tamg, "_lowers_to_csr", lambda device: False)
-    ref, lowered_ref, packed_ref = run()
-    assert lowered_ref == 0 and packed_ref == lowered
+    st, lowered = run()
+    assert lowered >= 3
+    packs = []
+
+    def pack_instead(H, dtype, device):
+        group_rows = 32 if H.shape[0] == H.shape[1] else None
+        if not pack_fits(H, group_rows):
+            return None
+        packs.append(BwsMatrix.from_host_csr(
+            H, dtype=dtype, use_rcm=False, group_rows=group_rows,
+            gt="auto", device=device))
+        return packs[-1]
+
+    monkeypatch.setattr(tamg, "lower_to_csr", pack_instead)
+    ref, lowered_ref = run()
+    assert lowered_ref == 0 and len(packs) == lowered
     assert st.success and ref.success and st.iters == ref.iters
     assert _rel(st.soln, ref.soln) <= 1e-10
     Timer.reset()
@@ -482,7 +492,6 @@ def test_lowered_hierarchy_replays_as_one_graph(cuda):
     """After its eager first apply and its capture, every apply of a
     preconditioner over lowered levels is a graph replay: the benchmark's
     ``precond.graph_replay_share`` reads 100 %."""
-    from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix
     from pysolvers_tpu_torch.utils.timing import Timer
     from solverbench.lib import spec as S
     Ap, _ = _fem_hierarchy()
@@ -1637,15 +1646,15 @@ def _built_on(run):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_device_sa_on_cuda_matches_cpu(cuda, dtype):
     """P, R, A_c and A0_inv built on the card against the CPU build of the
-    same products (1e-12 / 1e-5 relative to max|·|); the fine level is a
-    BWS pack on the card, the product operator on the CPU."""
+    same products (1e-12 / 1e-5 relative to max|·|); the fine level is
+    K2's layout on the card, the product operator on the CPU."""
     Ap, _ = _fem_rcm()
     H = HostCSR(Ap.indptr, Ap.indices, Ap.data.astype(dtype), Ap.shape)
     tol = 1e-12 if dtype == np.float64 else 1e-5
     hc = tamg.build_sa_hierarchy_device(H, 3, dtype=dtype, device=cuda)
     hr = tamg.build_sa_hierarchy_device(H, 3, dtype=dtype, device="cpu")
-    assert isinstance(hc.levels[-1].A_dev, BwsMatrix)
-    assert not isinstance(hr.levels[-1].A_dev, BwsMatrix)
+    assert isinstance(hc.levels[-1].A_dev, BwsCsrMatrix)
+    assert not isinstance(hr.levels[-1].A_dev, (BwsMatrix, BwsCsrMatrix))
     assert hc.levels[0].A_dev is None and hr.levels[0].A_dev is None
     for lc, lr in zip(hc.levels[1:], hr.levels[1:]):
         for f in ("P_dev", "R_dev", "dinv"):
@@ -1690,7 +1699,7 @@ def test_auto_galerkin_builds_on_the_card(cuda, precision, monkeypatch):
     h = solver._formed_prec.state
     assert built == "device"
     assert h.levels[-1].P_dev.device.type == "cuda"
-    assert isinstance(h.levels[-1].A_dev, BwsMatrix)
+    assert isinstance(h.levels[-1].A_dev, BwsCsrMatrix)
     assert h.A0_inv.dtype == (torch.float64 if precision == "native"
                               else torch.float32)
     assert tbws.bws_spmv_launches > 0

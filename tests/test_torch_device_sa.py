@@ -25,7 +25,9 @@ import pysolvers_tpu_torch as pt
 import pysolvers_tpu_torch.linear.amg as tamg
 from pysolvers_tpu_torch import convert
 from pysolvers_tpu_torch.parallel import amg_setup
-from pysolvers_tpu_torch.sparse.bws import window_fits
+from pysolvers_tpu_torch.sparse import bws as tbws
+from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, pack_fits
+from pysolvers_tpu_torch.utils.timing import Timer
 
 torch.set_num_threads(1)
 
@@ -343,15 +345,16 @@ def test_chunked_products_are_bit_equal(name, dtype):
 
 
 def test_fine_format_on_the_cpu():
-    """"auto" keeps the product operator on the CPU; "bws" packs the fine
-    level (K2's twin here) and gives the same cycle."""
+    """"auto" keeps the product operator on the CPU; "bws" lowers the fine
+    level to K2's layout (its plain product here) and gives the same
+    cycle."""
     _, Ht = _pair("fem20")
     h_auto = tamg.build_sa_hierarchy_device(Ht, dtype=np.float64,
                                             device="cpu")
     h_bws = tamg.build_sa_hierarchy_device(Ht, dtype=np.float64,
                                            fine_format="bws", device="cpu")
     assert isinstance(h_auto.levels[-1].A_dev, pt.EllMatrix)
-    assert isinstance(h_bws.levels[-1].A_dev, pt.BwsMatrix)
+    assert isinstance(h_bws.levels[-1].A_dev, BwsCsrMatrix)
     f = torch.from_numpy(np.random.default_rng(6).standard_normal(
         Ht.shape[0]))
     y_a = tamg.v_cycle(h_auto, f, torch.zeros_like(f)).numpy()
@@ -360,14 +363,14 @@ def test_fine_format_on_the_cpu():
 
 
 @pytest.mark.parametrize("order", ["shuffled", "rcm"])
-def test_window_fits_refuses_only_what_the_pack_refuses(order):
-    """window_fits (O(nnz), no pack) is False only where the pack raises:
+def test_pack_fits_refuses_only_what_the_pack_refuses(order):
+    """pack_fits (O(nnz), no pack) is False only where the pack raises:
     the shuffled FEM numbering at n = 39,601 is too unbanded for a BWS
     window, its RCM ordering packs."""
     A = pt.problems.fem_poisson_2d_unstructured(200, seed=3)
     if order == "rcm":
         A = A.permute_symmetric(pt.BwsMatrix._rcm_perm(A))
-    fits = window_fits(A, 32)
+    fits = pack_fits(A, 32)
     assert fits == (order == "rcm")
     try:
         pt.BwsMatrix.from_host_csr(A, dtype=np.float64, use_rcm=False,
@@ -380,20 +383,20 @@ def test_window_fits_refuses_only_what_the_pack_refuses(order):
 
 
 @pytest.mark.parametrize("fits", [True, False])
-def test_fine_pack_tried_only_where_the_window_fits(fits, monkeypatch):
-    """Under the card's rule ("auto" packs the fine level) a matrix that
-    window_fits refuses keeps the product operator without a pack."""
+def test_fine_level_lowered_only_where_the_pack_fits(fits, monkeypatch):
+    """Under the card's rule ("auto" brings the fine level into the BWS
+    lane) a matrix that pack_fits refuses keeps the product operator and
+    is not lowered; one it takes is K2's layout."""
     monkeypatch.setattr(amg_setup.api, "_bws_route", lambda device: True)
-    monkeypatch.setattr(amg_setup, "window_fits", lambda H, gr: fits)
-    packs = []
-    real = pt.BwsMatrix.from_host_csr
-    monkeypatch.setattr(pt.BwsMatrix, "from_host_csr", staticmethod(
-        lambda *a, **k: packs.append(1) or real(*a, **k)))
+    monkeypatch.setattr(tbws, "pack_fits", lambda H, gr: fits)
     _, Ht = _pair("fem20")
+    Timer.reset()
     h = tamg.build_sa_hierarchy_device(Ht, dtype=np.float64, device="cpu")
-    assert len(packs) == int(fits)
+    assert Timer.calls("amg.csr_lowerings") == int(fits)
+    assert Timer.calls("amg.device_bws") == 1
+    Timer.reset()
     assert isinstance(h.levels[-1].A_dev,
-                      pt.BwsMatrix if fits else pt.EllMatrix)
+                      BwsCsrMatrix if fits else pt.EllMatrix)
 
 
 def test_tf32_is_off_inside_the_products(monkeypatch):

@@ -78,7 +78,7 @@ def test_frozen_preconditioner_is_reused():
 # since slice 12 (tests/test_torch_parallel.py,
 # tests/test_torch_mesh_factory.py): what is not a port Mesh is a
 # TypeError naming make_mesh
-UNPORTED = {
+INVALID = {
     "mesh": lambda H, b: pt.solve(H, b, mesh=object()),
     "pcg_mixed": lambda H, b: pt.PCG(
         precision="mixed", device="cpu").make_solver().solve(
@@ -97,14 +97,14 @@ UNPORTED = {
 FACTORY_BLOCK_RHS = ("pcg_mixed", "pcg_mixed_bws_pair")
 
 
-@pytest.mark.parametrize("route", sorted(UNPORTED))
-def test_unported_routes_raise(route):
+@pytest.mark.parametrize("route", sorted(INVALID))
+def test_invalid_options_raise(route):
     H = pt.problems.fd_laplacian_2d(24)
     error, match = ((ValueError, "solve\\(A, B\\)")
                     if route in FACTORY_BLOCK_RHS
                     else (TypeError, "make_mesh"))
     with pytest.raises(error, match=match):
-        UNPORTED[route](H, _rhs(24, 3))
+        INVALID[route](H, _rhs(24, 3))
 
 
 @pytest.mark.parametrize("precision", ["native", "mixed"])

@@ -12,7 +12,8 @@ pipeline of ``benchmarks/unstructured_amg.py`` at test size:
     1e-10: iterations within ±1, solutions within 1e-6 relative;
 (c) the caller's fine pack is the hierarchy's fine operator;
 (d) a JAX BWS hierarchy carried across by ``convert`` (and the port's own
-    BWS hierarchy) give the JAX ``v_cycle`` within 1e-5 relative in f32.
+    BWS hierarchy, whose levels are K2's layout of the JAX package's packs
+    bit for bit) give the JAX ``v_cycle`` within 1e-5 relative in f32.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +26,9 @@ from pysolvers_tpu.sparse.bws import BwsMatrix as JaxBws
 import pysolvers_tpu_torch as pt
 import pysolvers_tpu_torch.linear.amg as tamg
 from pysolvers_tpu_torch import convert
+from pysolvers_tpu_torch.sparse.bws import BwsCsrMatrix, bws_device_csr
 
-from test_torch_amg import dump_hierarchy
+from test_torch_amg import _op_arrays, dump_hierarchy
 
 torch.set_num_threads(1)
 
@@ -95,7 +97,8 @@ def test_pcg_bws_f64_matches_jax_auto(smoother):
     assert h.levels[-1].A_dev is A_bws
     for L in h.levels[1:]:
         for op in (L.A_dev, L.P_dev, L.R_dev):
-            assert isinstance(op, pt.BwsMatrix) == (max(op.shape) >= 2000)
+            assert isinstance(op, (pt.BwsMatrix, BwsCsrMatrix)) == (
+                max(op.shape) >= 2000)
 
 
 def test_amg_vcycle_solver_bws_matches_auto():
@@ -121,7 +124,7 @@ def test_bws_hierarchy_matches_ell_hierarchy_f64():
     h_bws = tamg.build_device_hierarchy(mlh, "jacobi", device="cpu",
                                         matrix_format="bws")
     h_ell = tamg.build_device_hierarchy(mlh, "jacobi", device="cpu")
-    assert isinstance(h_bws.levels[-1].A_dev, pt.BwsMatrix)
+    assert isinstance(h_bws.levels[-1].A_dev, BwsCsrMatrix)
     assert isinstance(h_ell.levels[-1].A_dev, pt.EllMatrix)
     rng = np.random.default_rng(1)
     f = torch.from_numpy(rng.standard_normal(Ap.shape[0]))
@@ -157,7 +160,16 @@ def test_v_cycle_matches_jax_bws_hierarchy(built_by):
     for Lj, Lt in zip(hj.levels[1:], ht.levels[1:]):
         for opj, opt in ((Lj.A_dev, Lt.A_dev), (Lj.P_dev, Lt.P_dev),
                          (Lj.R_dev, Lt.R_dev)):
-            assert type(opt).__name__ == type(opj).__name__
+            if built_by == "port" and isinstance(opj, JaxBws):
+                # the port lowers what the JAX package packs: the layout
+                # is that pack's device CSR
+                assert isinstance(opt, BwsCsrMatrix)
+                L = bws_device_csr(pt.BwsMatrix.from_numpy(
+                    **_op_arrays(opj), device="cpu"))
+                for f in ("indptr", "indices", "values"):
+                    assert torch.equal(getattr(opt.csr, f), getattr(L, f))
+            else:
+                assert type(opt).__name__ == type(opj).__name__
     rng = np.random.default_rng(0)
     f = rng.standard_normal(Ap.shape[0]).astype(np.float32)
     x0 = rng.standard_normal(Ap.shape[0]).astype(np.float32)
