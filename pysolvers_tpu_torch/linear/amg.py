@@ -207,6 +207,27 @@ def smooth_prolongator(A_f: HostCSR, P_hat: HostCSR, omega: float = 2.0 / 3.0
     return P_hat.add(AP, alpha=-omega)
 
 
+def smoothed_prolongator(A: HostCSR, lvl_tol: float, strength, agg,
+                         omega: float = 2.0 / 3.0):
+    """SA's smoothed prolongator of A and its aggregates: returns (P,
+    whether the native pass built it).  An f64 A takes one native pass over
+    A, its strength mask and the aggregates (``native.sa_prolongator``),
+    bit-equal to the numpy route of ``tentative_prolongator``,
+    ``filtered_matrix`` and ``smooth_prolongator``, which stays for a
+    float32 A, a host without the library, and a row that lumps weak
+    entries with no stored diagonal."""
+    if A.data.dtype == np.float64 and A.n_rows > 0:
+        from ..utils import native
+        n_agg = int(agg.max()) + 1
+        res = native.sa_prolongator(A.indptr, A.indices, A.data,
+                                    strength[2], agg, n_agg, omega)
+        if res is not None:
+            return HostCSR(*res, (A.n_rows, n_agg)), True
+    P_hat = tentative_prolongator(agg, dtype=A.data.dtype)
+    A_f = filtered_matrix(A, lvl_tol, strength=strength)
+    return smooth_prolongator(A_f, P_hat, omega), False
+
+
 def make_restriction(P: HostCSR, normalize: bool = True) -> HostCSR:
     """R = Pᵀ, optionally row-sum normalized (reference MLHierarchy.py:60-78)."""
     R = P.transpose()
@@ -238,8 +259,10 @@ def sa_coarsen(A: HostCSR, lvl_tol: float, omega: float = 2.0 / 3.0,
     problem converges to 1e-10 in 21 iterations.
 
     Timers: "amg.aggregate" (strength and aggregates; none where
-    ``level0`` is given), "amg.galerkin" (P̂, the filtered A, the smoothed
-    P, R and R·A·P)."""
+    ``level0`` is given), "amg.galerkin" (P, R and R·A·P), inside it
+    "amg.rap" (R·A·P); counters "amg.galerkin_levels" (each call) and
+    "amg.native_galerkin_levels" (each P from the native pass of
+    ``smoothed_prolongator``)."""
     if level0 is None:
         with Timer("amg.aggregate"):
             # one O(nnz) strength pass, shared with the filtered matrix
@@ -248,11 +271,13 @@ def sa_coarsen(A: HostCSR, lvl_tol: float, omega: float = 2.0 / 3.0,
     else:
         strength, agg = level0
     with Timer("amg.galerkin"):
-        P_hat = tentative_prolongator(agg, dtype=A.data.dtype)
-        A_f = filtered_matrix(A, lvl_tol, strength=strength)
-        P = smooth_prolongator(A_f, P_hat, omega)
+        Timer.count("amg.galerkin_levels")
+        P, native_p = smoothed_prolongator(A, lvl_tol, strength, agg, omega)
+        if native_p:
+            Timer.count("amg.native_galerkin_levels")
         R = make_restriction(P, normalize=False)
-        A_c = R.matmat(A.matmat(P))
+        with Timer("amg.rap"):
+            A_c = R.matmat(A.matmat(P))
     return P, R, A_c
 
 

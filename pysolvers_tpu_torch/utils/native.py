@@ -1,18 +1,24 @@
-"""ctypes bindings for the native setup library (native/pst_native.cpp).
+"""ctypes bindings for the native setup libraries.
 
-Copied from ``pysolvers_tpu/utils/native.py``, code unchanged (importing that
-package imports jax).  Both packages bind the SAME ``native/libpst_native.so``.
+``native/pst_native.cpp`` (SpGEMM, ILUT, aggregation, RCM, ...) is bound as
+in ``pysolvers_tpu/utils/native.py`` (importing that package imports jax);
+both packages bind the SAME ``native/libpst_native.so``.  The port's own
+passes, ``sa_prolongator`` and ``csr_transpose``, live in
+``pysolvers_tpu_torch/csrc/sa_setup.cpp`` and are built into
+``pysolvers_tpu_torch/_build/libsa_setup.so``.
 
-Auto-builds with g++ on first use if the shared object is missing; every
-entry point has a pure-numpy fallback in the Python layer, so the framework
-degrades gracefully on hosts without a toolchain (``PST_NO_NATIVE=1``
-forces the fallback).
+Both libraries are built with g++ at first use when missing or older than
+their source; every entry point has a pure-numpy fallback in the Python
+layer, so the framework degrades gracefully on hosts without a toolchain
+(``PST_NO_NATIVE=1`` forces the fallback).  A port library that cannot be
+built warns once, since its fallback is slower, not wrong.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -21,6 +27,12 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+
+_SETUP_LIB: Optional[ctypes.CDLL] = None
+_SETUP_TRIED = False
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SETUP_SRC = os.path.join(_PKG_DIR, "csrc", "sa_setup.cpp")
+_SETUP_SO = os.path.join(_PKG_DIR, "_build", "libsa_setup.so")
 
 
 def _build() -> Optional[str]:
@@ -109,6 +121,65 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return None
     _LIB = lib
     return _LIB
+
+
+def _build_setup() -> str:
+    """Compile ``csrc/sa_setup.cpp`` unless its library is up to date (to a
+    temporary name renamed into place, as ``_build``); raises on failure.
+    ``-ffp-contract=off`` keeps every product rounded before its add, which
+    the passes' bit-equality with numpy needs."""
+    so = _SETUP_SO
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(
+            _SETUP_SRC):
+        return so
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.build.{os.getpid()}"
+    try:
+        subprocess.run(["g++", "-O3", "-std=c++17", "-ffp-contract=off",
+                        "-pthread", "-shared", "-fPIC", "-o", tmp,
+                        _SETUP_SRC], check=True, capture_output=True)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    os.replace(tmp, so)
+    return so
+
+
+def get_setup_lib() -> Optional[ctypes.CDLL]:
+    """The port's ``libsa_setup.so``, built at first use; None under
+    ``PST_NO_NATIVE`` or, with one warning, where it cannot be built or
+    loaded."""
+    global _SETUP_LIB, _SETUP_TRIED
+    if _SETUP_TRIED:
+        return _SETUP_LIB
+    _SETUP_TRIED = True
+    if os.environ.get("PST_NO_NATIVE"):
+        return None
+    try:
+        lib = ctypes.CDLL(_build_setup())
+    except (OSError, subprocess.CalledProcessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        warnings.warn("pysolvers_tpu_torch: the native SA setup passes "
+                      f"could not be built or loaded ({e}; "
+                      f"{detail.decode(errors='replace')[-500:]}); "
+                      "sa_coarsen and HostCSR.transpose take the slower "
+                      "numpy routes", RuntimeWarning, stacklevel=2)
+        return None
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.sa_prolongator.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p,
+                                   i32p, f64p, u8p, i64p, ctypes.c_double,
+                                   i64p, i32p, f64p, i64p]
+    lib.sa_prolongator.restype = ctypes.c_int32
+    lib.csr_transpose.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p, i32p,
+                                  ctypes.c_void_p, ctypes.c_int64, i64p,
+                                  i32p, ctypes.c_void_p]
+    lib.csr_transpose.restype = ctypes.c_int32
+    _SETUP_LIB = lib
+    return _SETUP_LIB
 
 
 def _copy_out(lib, handle) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -236,6 +307,68 @@ def csr_matvec(indptr, indices, data, x):
                    np.ascontiguousarray(data, np.float64),
                    np.ascontiguousarray(x, np.float64), y)
     return y
+
+
+def sa_prolongator(indptr, indices, data, strong, agg, n_agg: int,
+                   omega: float):
+    """SA's smoothed prolongator P = (I − ω·D_f⁻¹·A_f)·P̂ of an f64 CSR A,
+    its strength mask per entry and its aggregates, in one row-parallel
+    pass bit-equal to ``linear/amg.py``'s numpy route.  Returns
+    (indptr, indices, data), or None where the library is unavailable or
+    leaves the matrix to that route (a row lumping weak entries with no
+    stored diagonal, an id out of range)."""
+    lib = get_setup_lib()
+    if lib is None:
+        return None
+    n = len(indptr) - 1
+    nnz = int(indptr[-1])
+    strong = np.ascontiguousarray(strong, dtype=bool).view(np.uint8)
+    if len(indices) != nnz or len(data) != nnz or len(strong) != nnz \
+            or len(agg) != n:
+        return None
+    # outputs sized for the most P can hold (a row of A plus agg[i]),
+    # shrunk in place to P's count
+    out_indptr = np.empty(n + 1, dtype=np.int64)
+    out_indices = np.empty(nnz + n, dtype=np.int32)
+    out_data = np.empty(nnz + n, dtype=np.float64)
+    out_nnz = np.zeros(1, dtype=np.int64)
+    status = lib.sa_prolongator(
+        n, int(n_agg), np.ascontiguousarray(indptr, np.int64),
+        np.ascontiguousarray(indices, np.int32),
+        np.ascontiguousarray(data, np.float64), strong,
+        np.ascontiguousarray(agg, np.int64), float(omega), out_indptr,
+        out_indices, out_data, out_nnz)
+    if status != 0:
+        return None
+    out_indices.resize(int(out_nnz[0]), refcheck=False)
+    out_data.resize(int(out_nnz[0]), refcheck=False)
+    return out_indptr, out_indices, out_data
+
+
+def csr_transpose(indptr, indices, data, shape):
+    """Aᵀ by a counting pass: (indptr, indices, data) with each new row's
+    entries in old-row order, the arrays of a stable argsort of the
+    column ids, data in its own dtype.  None where the library is
+    unavailable, the values are not 4- or 8-byte numbers, or the arrays
+    do not form a CSR of ``shape``."""
+    lib = get_setup_lib()
+    if lib is None:
+        return None
+    n_rows, n_cols = shape
+    data = np.ascontiguousarray(data)
+    if (data.dtype.kind not in "iuf" or data.itemsize not in (4, 8)
+            or len(indptr) != n_rows + 1 or len(indices) != int(indptr[-1])
+            or len(data) != len(indices)):
+        return None
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int32)
+    out_indptr = np.empty(n_cols + 1, dtype=np.int64)
+    out_indices = np.empty(len(indices), dtype=np.int32)
+    out_data = np.empty_like(data)
+    status = lib.csr_transpose(n_rows, n_cols, indptr, indices,
+                               data.ctypes.data, data.itemsize, out_indptr,
+                               out_indices, out_data.ctypes.data)
+    return (out_indptr, out_indices, out_data) if status == 0 else None
 
 
 def mtx_read(path: str, nnz_cap: int):

@@ -9,7 +9,7 @@ setup(
     packages=find_packages(include=["pysolvers_tpu", "pysolvers_tpu.*",
                                     "pysolvers_tpu_torch",
                                     "pysolvers_tpu_torch.*"]),
-    package_data={"pysolvers_tpu_torch": ["csrc/*.cu"]},
+    package_data={"pysolvers_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
 )
