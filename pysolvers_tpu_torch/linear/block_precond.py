@@ -32,11 +32,13 @@ import numpy as np
 import torch
 
 from ..ops import matvec
+from ..ops.cuda_graph import GraphedApply
 from ..sparse.bdia import BdiaMatrix
 from ..sparse.device import numpy_dtype
 from ..sparse.host import HostCSR
-from ..utils.timing import Timer
-from .amg import build_device_hierarchy, build_sa_hierarchy, v_cycle
+from ..utils.timing import Timer, traced
+from .amg import (_replays_as_graph, build_device_hierarchy,
+                  build_sa_hierarchy, v_cycle)
 from .preconditioner import Preconditioner, PreconditionerType
 
 
@@ -134,7 +136,21 @@ class BlockMGBdiaPreconditionerType(PreconditionerType):
     are a contiguous nb-stream: b independent scalar SA hierarchies (one
     per subsystem S_p) apply with no transposes — slice the vector, run
     V-cycles, stack.  The inter-dof coupling left out of M is what CG
-    handles, so iterations drop from O(√κ(A)) to O(coupling strength)."""
+    handles, so iterations drop from O(√κ(A)) to O(coupling strength).
+
+    On one CUDA device the b fields' V-cycles of an apply are served by
+    one CUDA graph per input signature (``ops/cuda_graph.py::
+    GraphedApply``, the rule of ``AMGPreconditionerType``: the hierarchies'
+    Jacobi sweeps make no host read): the first call runs eagerly, the
+    second captures, every later call replays.  The CPU runs every apply
+    eagerly.
+
+    Timers: "bdia.bmg_setup" (the b builds, always on); every apply counts
+    "bmg.applies" (always on), graph launches "bmg.graph_captures" and
+    "bmg.graph_replays" (the capturing call included); while the profiler
+    runs an apply is the span "bmg.apply", and an eager one holds one
+    "bmg.field" per field's V-cycles (a replay visits no field on the
+    host; nothing is recorded with the profiler off)."""
 
     def __init__(self, num_iters: int = 1, num_levels: int = 3,
                  side: str = "right"):
@@ -160,16 +176,27 @@ class BlockMGBdiaPreconditionerType(PreconditionerType):
                     matrix_format=fmt))
         b, nb, num_iters = A.b, A.nb, self.num_iters
 
-        def apply(v):
+        def cycles(v):
             vb = v.reshape(b, nb)
             zs = []
             for p, h in enumerate(hierarchies):
-                r = vb[p].to(h.levels[-1].dinv.dtype)
-                x = torch.zeros_like(r)
-                for _ in range(num_iters):
-                    x = v_cycle(h, r, x)
-                zs.append(x)
+                with traced("bmg.field"):
+                    r = vb[p].to(h.levels[-1].dinv.dtype)
+                    x = torch.zeros_like(r)
+                    for _ in range(num_iters):
+                        x = v_cycle(h, r, x)
+                    zs.append(x)
             return torch.stack(zs).reshape(b * nb).to(v.dtype)
+
+        # the scalar AMG preconditioner's rule, for the b V-cycles at once
+        run = (GraphedApply(cycles, "bmg", A.device)
+               if all(_replays_as_graph(h, None) for h in hierarchies)
+               else cycles)
+
+        def apply(v):
+            Timer.count("bmg.applies")
+            with traced("bmg.apply"):
+                return run(v)
 
         prec = self._wrap(apply)
         prec.state = tuple(hierarchies)

@@ -70,6 +70,7 @@ import torch
 from ..sparse.bdia import BdiaMatrix
 from ..sparse.bws import BwsCsrMatrix, BwsMatrix
 from ..sparse.device import DiaMatrix, EllMatrix
+from ..utils.timing import Timer
 from . import _cuda_build
 from .bws_spmv import bws_spmv
 from .grid_spmv import GridDiaMatrix, grid_dia_spmv
@@ -272,12 +273,14 @@ def _check_bdia(A: BdiaMatrix, v: torch.Tensor, what: str) -> bool:
 
 def bdia_spmv(A: BdiaMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x in planar ordering: kernel K4 on CUDA, its twin on the
-    CPU."""
+    CPU; either way one count of the counter "bdia.products"."""
     global bdia_spmv_launches
     if tuple(x.shape) != (A.n_cols,):
         raise ValueError(f"x has shape {tuple(x.shape)}, the operator "
                          f"{A.shape}")
-    if _check_bdia(A, x, "x"):
+    on_cpu = _check_bdia(A, x, "x")
+    Timer.count("bdia.products")
+    if on_cpu:
         return bdia_spmv_torch(A, x)
     y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
     if A.n_rows == 0:

@@ -14,8 +14,8 @@ imports jax), with two kinds of span and a counter:
   times per setup.
 * ``traced(name)`` is a ``Timer`` only while a ``torch.profiler`` session
   runs (``tracing()``), and otherwise a shared no-op: a site inside the
-  solve loop ("krylov.*", "amg.apply", "amg.level.<k>") costs one check
-  with tracing off and records nothing.
+  solve loop ("krylov.*", "amg.apply", "amg.level.<k>", "bmg.*") costs
+  one check with tracing off and records nothing.
 * ``Timer.count(name)`` adds to a counter that has no total
   ("host_reads", ``core.host_read``).
 
