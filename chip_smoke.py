@@ -59,12 +59,22 @@ more (any failure raises and the script exits non-zero):
    probed 9-point m = 5119 level; a random D = 85 table on a 1001 x 777
    grid, nonzero at the edges; CUDA-event times of both (and of a torch
    CSR product of the first two, built on the card);
+   12b. the multigrid level's Jacobi sweep and residual (``ops/sweep.py``)
+   as the main path runs them, one launch of K1 or K6 with its epilogue
+   (``csrc/sweep_epilogue.cuh``): K1 and K6 on that fine operator (D = 5)
+   and K6 on the probed m = 5119 level (D = 9), f64 and f32, each bit for
+   bit against the kernel's product followed by torch's elementwise
+   passes, within EPI_TOL of the twin's product followed by the same
+   passes, one launch each; CUDA-event times beside the (D + 4)- and
+   (D + 3)-word bounds, which the kernels line carries as ``epilogues``;
 13. the geometric-multigrid path at full width (``hbm_solve.py``'s
    ``run_solve`` at its default m = 10239, native f64): PCG preconditioned
    by two V-cycles of the 10-level device-probed grid hierarchy
    (``build_grid_hierarchy_device``, Jacobi, K6 on m = 10239 and 5119, K1
-   below) to tau = 1e-10, checked on the host by the matrix-free stencil;
-   a repeat solve, and one more under ``torch.profiler``;
+   below) to tau = 1e-10, checked on the host by the matrix-free stencil,
+   every Jacobi sweep of the first solve served by an epilogue (the
+   counters "smooth.fused_sweeps" and "smooth.jacobi_sweeps" equal); a
+   repeat solve, and one more under ``torch.profiler``;
 14. the object-oriented GMG entry points at ``run_large.py``'s m = 1023
    (6 levels, f64, tau = 1e-10, no K6 at this width): PCG with
    ``GMGPreconditionerType`` (galerkin "host" and "device") and
@@ -260,6 +270,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # bound holds K4, K5 (which adds its D·b terms in (q, d) order, the twin in
 # (d, q): a reordering, again a few ulps of the partial sums) and K6.
 TOL = {"float32": 1e-6, "float64": 1e-13}
+# phase 12b's epilogues against the twin's product followed by torch's
+# passes, as max|Δ| / max|·|: the products differ as above (TOL of max|A x|),
+# and dinv·(f - A x) is of the size of x, so the sweep and the residual
+# carry that error at most a small factor larger
+EPI_TOL = {"float32": 1e-5, "float64": 1e-12}
 # K2/K3 against their twin, as max|y_kernel - y_twin| / max|y_twin|.  The
 # kernels sum a row's products over the device CSR (in column order, or
 # strided over up to 256 threads and then by shuffles); the twin sums the
@@ -1535,11 +1550,99 @@ def check_k6_op(name, A, runs, flat=None):
                                  lib_err))
 
 
+def check_epilogues(name, A, runs=5):
+    """Phase 12b.  The multigrid level's Jacobi sweep x + (2/3 dinv)(f - A x)
+    and residual f - A x (``ops/sweep.py``) on A, as the main path calls
+    them: one launch each of K1 (flat DIA) or K6 (grid DIA) with its
+    epilogue.  Each equals the unfused card path (the kernel's product,
+    then torch's elementwise passes) bit for bit, and lies within EPI_TOL
+    of the plain twin's product followed by the same passes (a wrong
+    omega, index or operation in the epilogue is orders of magnitude
+    outside it); dinv is the inverse of A's diagonal and f = A x2, so the
+    sweep's terms are of one size.  CUDA-event times of both beside each
+    epilogue's bound: (D + 4) words a row for the sweep, (D + 3) for the
+    residual.  Returns the kernels-record numbers."""
+    import torch
+    from pysolvers_tpu_torch.ops import grid_spmv, matvec, spmv, sweep
+    from pysolvers_tpu_torch.ops.grid_spmv import GridDiaMatrix
+    from pysolvers_tpu_torch.utils.timing import Timer
+    grid = isinstance(A, GridDiaMatrix)
+    kernel, twin = (("K6", grid_spmv.grid_dia_spmv_torch) if grid
+                    else ("K1", spmv.dia_spmv_torch))
+    dt = str(A.dtype).split(".")[1]
+    n = A.n_rows
+    if grid:
+        D, (mr, mc) = len(A.pairs), A.dims
+        diag = A.diags[A.pairs.index((0, 0)), :mr, :mc].reshape(-1)
+    else:
+        D = len(A.offsets)
+        diag = A.diags[A.offsets.index(0), :n]
+    dinv = 1.0 / diag
+    del diag
+    gen = torch.Generator(device=A.device).manual_seed(12)
+    x, x2 = (torch.rand(n, generator=gen, dtype=A.dtype, device=A.device)
+             - 0.5 for _ in range(2))
+    f = matvec(A, x2)
+    del x2
+    omega = 2.0 / 3.0
+    torch.cuda.synchronize()
+    before, fused0 = launches(), Timer.calls("smooth.fused_sweeps")
+    xs = sweep.jacobi_sweep(A, x, f, dinv, omega)
+    r = sweep.residual(A, f, x)
+    torch.cuda.synchronize()
+    after = launches()
+    n_launch = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    n_fused = Timer.calls("smooth.fused_sweeps") - fused0
+    y = matvec(A, x)
+    equal = dict(sweep=torch.equal(xs, x + omega * dinv * (f - y)),
+                 residual=torch.equal(r, f - y))
+    del y
+    y_t = twin(A, x)
+    r_t = f - y_t
+    del y_t
+    xs_t = x + omega * dinv * r_t
+    rel = dict(sweep=float((xs - xs_t).abs().max() / xs_t.abs().max()),
+               residual=float((r - r_t).abs().max() / r_t.abs().max()))
+    finite = bool(torch.isfinite(xs).all()) and bool(torch.isfinite(r).all())
+    del xs, r, xs_t, r_t
+    tol = EPI_TOL[dt]
+    ops = {"jacobi": (lambda: sweep.jacobi_sweep(A, x, f, dinv, omega),
+                      lambda: x + omega * dinv * (f - matvec(A, x)),
+                      D + 4, 2 * D + 4),
+           "residual": (lambda: sweep.residual(A, f, x),
+                        lambda: f - matvec(A, x), D + 3, 2 * D + 1)}
+    rec, parts = {}, []
+    word = A.diags.element_size()
+    for op, (fused, unfused, words, flops) in ops.items():
+        ms, unfused_ms, _ = time_pair(fused, unfused, runs=runs)
+        bnd = bound(words * n * word, flops * n, dt)
+        rec[op] = dict(ms=ms, unfused_ms=unfused_ms, words_per_row=words,
+                       max_rel_to_twin=rel["sweep" if op == "jacobi"
+                                           else "residual"], **bnd)
+        parts.append(f"{op} {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                     f"({words} words a row, "
+                     f"{100 * bnd['bound_ms'] / ms:.1f} %) | unfused "
+                     f"{unfused_ms:.4f} ms")
+    phase("12b", f"{kernel} epilogues {name} {dt} D={D} n={n}: launches "
+                 f"{n_launch}, fused sweeps counted {n_fused}; bit-equal to "
+                 f"the unfused card path {equal}; against the twin "
+                 f"sweep {rel['sweep']:.3e} residual {rel['residual']:.3e} "
+                 f"(tol {tol:g}); " + "; ".join(parts) + f" | {card_line()}")
+    if (n_launch != {kernel: 2} or n_fused != 1 or not all(equal.values())
+            or not finite or not max(rel.values()) <= tol):
+        raise SystemExit(f"{kernel}'s epilogues on {name} {dt}: launches "
+                         f"{n_launch}, fused sweeps {n_fused}, bit-equal "
+                         f"{equal}, finite {finite}, rel to the twin {rel} "
+                         f"(tol {tol:g})")
+    return {f"{name} {dt}": rec}
+
+
 def check_k6(device, m=GRID_M):
     """Phase 12.  Assembles and uploads the full-width fine operator and
     returns {"A": it (flat DIA, f64), "assembly_s", "upload_s": the host
     seconds of both, "rec": K6's numbers on it in f64 for the kernels
-    record}."""
+    record, "epilogues": phase 12b's numbers of K1 and K6 (on the fine
+    operator, and K6 on the probed level too, f64 and f32)}."""
     import torch
     from pysolvers_tpu_torch import convert
     from pysolvers_tpu_torch.linear.gmg_grid import _probe_coarse_dia
@@ -1562,9 +1665,14 @@ def check_k6(device, m=GRID_M):
               f"{tuple(G.diags.shape)} ({A.diags.numel() * 8 / 1e9:.2f} GB "
               f"each) | {card}")
     rec = check_k6_op(f"fine operator m={m}", G, 21, flat=A)
+    epi = {"K1": {}, "K6": {}}
+    epi["K1"].update(check_epilogues(f"fine operator m={m}", A))
+    epi["K6"].update(check_epilogues(f"fine operator m={m}", G))
     A32 = DiaMatrix(A.diags.float(), A.offsets, A.offsets_dev, A.shape)
     G32 = GridDiaMatrix.from_dia_device(A32, (m, m))
     check_k6_op(f"fine operator m={m}", G32, 5, flat=A32)
+    epi["K1"].update(check_epilogues(f"fine operator m={m}", A32))
+    epi["K6"].update(check_epilogues(f"fine operator m={m}", G32))
     del A32, G32, G
     m_c = (m - 1) // 2
     t0 = time.perf_counter()
@@ -1574,10 +1682,12 @@ def check_k6(device, m=GRID_M):
     Gc = GridDiaMatrix.from_dia_device(Ac, (m_c, m_c))
     phase(12, f"probed level m={m_c} (9-point) in {probe_s:.3f} s")
     check_k6_op(f"probed level m={m_c}", Gc, 5, flat=Ac)
+    epi["K6"].update(check_epilogues(f"probed level m={m_c}", Gc))
     Ac32 = DiaMatrix(Ac.diags.float(), Ac.offsets, Ac.offsets_dev, Ac.shape)
-    check_k6_op(f"probed level m={m_c}", GridDiaMatrix.from_dia_device(
-        Ac32, (m_c, m_c)), 5, flat=Ac32)
-    del Ac, Gc, Ac32
+    Gc32 = GridDiaMatrix.from_dia_device(Ac32, (m_c, m_c))
+    check_k6_op(f"probed level m={m_c}", Gc32, 5, flat=Ac32)
+    epi["K6"].update(check_epilogues(f"probed level m={m_c}", Gc32))
+    del Ac, Gc, Ac32, Gc32
     rng = np.random.default_rng(5)
     pairs = tuple((dr, dc) for dr in range(-2, 3) for dc in range(-8, 9))
     R = rng.standard_normal((len(pairs), 1001, 777))
@@ -1586,7 +1696,8 @@ def check_k6(device, m=GRID_M):
             R.astype(dt), pairs, (1001, 777), device=device), 5)
     phase(12, f"all K6 checks passed; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
-    return dict(A=A, assembly_s=assembly_s, upload_s=upload_s, rec=rec)
+    return dict(A=A, assembly_s=assembly_s, upload_s=upload_s, rec=rec,
+                epilogues=epi)
 
 
 def profile_call(fn):
@@ -1664,6 +1775,8 @@ def grid_path(fine, device, m=GRID_M, num_levels=GRID_LEVELS):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = launches()
+    sweeps = (Timer.calls("smooth.fused_sweeps"),
+              Timer.calls("smooth.jacobi_sweeps"))
     probes = {k: v for k, v in Timer._totals.items()
               if k.startswith("gmg.probe")}
     levels = [(h.ms[0], "dense inverse", h.ms[0] ** 2)] + [
@@ -1691,9 +1804,11 @@ def grid_path(fine, device, m=GRID_M, num_levels=GRID_LEVELS):
     del xh, x
     reason = StopReason(st.reason).name
     if (reason != "CONVERGED" or resid > RESID_LIMIT or err > GRID_ERR_LIMIT
-            or counts["K6"] <= 0 or counts["K1"] <= 0):
+            or counts["K6"] <= 0 or counts["K1"] <= 0
+            or sweeps[1] <= 0 or sweeps[0] != sweeps[1]):
         raise SystemExit(f"grid path: reason={reason} resid={resid:.3e} "
-                         f"err={err:.3e} launches={counts}")
+                         f"err={err:.3e} launches={counts} fused of Jacobi "
+                         f"sweeps {sweeps}")
     t0 = time.perf_counter()
     _, st2, _ = solve()
     torch.cuda.synchronize()
@@ -1703,7 +1818,8 @@ def grid_path(fine, device, m=GRID_M, num_levels=GRID_LEVELS):
               f"(matrix-free f64 stencil) err vs x*={err:.3e} (limit "
               f"{GRID_ERR_LIMIT:g}); first solve {first_s:.3f} s, repeat "
               f"{repeat_s:.3f} s = {1e3 * repeat_s / st2.k:.3f} ms/iter "
-              f"({st2.k} iters); launches {counts}; peak device memory "
+              f"({st2.k} iters); launches {counts}, of them Jacobi sweeps "
+              f"by an epilogue {sweeps[0]} of {sweeps[1]}; peak device memory "
               f"{peak:.2f} GB (setup and solves) | {card}")
     wall, dev_s, rows = profile_call(solve)
     if rows:
@@ -4349,6 +4465,7 @@ def main():
     p11 = block_multi(H_blk, A_blk, "cuda")
     fine = check_k6("cuda")
     rec_k6 = fine.pop("rec")
+    epi = fine.pop("epilogues")
     p13 = grid_path(fine, "cuda")
     oo_gmg("cuda")
     p16 = gmres_ilut("cuda")
@@ -4395,7 +4512,7 @@ def main():
     print(json.dumps({"kernels": [
         dict(name="dia_spmv", route="cuda", source=src + "dia_spmv.cu",
              replaces="pysolvers_tpu/ops/spmv.py:197",
-             launches=k1_launches, **rec_k1,
+             launches=k1_launches, **rec_k1, epilogues=epi["K1"],
              path_launches={"phase 16": k1_p16, "phase 16b": p16b["K1"],
                             "phase 17": p17["K1"],
                             "phase 18 mgs": p18["mgs"]["K1"],
@@ -4440,7 +4557,7 @@ def main():
         dict(name="grid_dia_spmv", route="cuda",
              source=src + "grid_dia_spmv.cu",
              replaces="pysolvers_tpu/ops/grid_spmv.py:154",
-             launches=p13_counts["K6"], **rec_k6,
+             launches=p13_counts["K6"], **rec_k6, epilogues=epi["K6"],
              # phase 28's grids (m <= 1023) are below GRID_KERNEL_MIN_M:
              # flat DIA there, K1
              path_launches=mixed_path({"phase 24": p24,

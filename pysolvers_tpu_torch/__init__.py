@@ -23,8 +23,10 @@ and J·v.
 Layers (bottom-up):
   sparse/    host CSR + device DIA/ELL/BWS/block-DIA containers
   ops/       SpMV and SpMM (K1, K2/K3, K4/K5, K6 and their plain twins,
-             ELL gather, DIA SpMM), the K7 lane-index probe, triangular
-             solves, the nvcc build of ``csrc/``
+             ELL gather, DIA SpMM), the multigrid level's Jacobi sweep
+             and residual (one K1/K6 launch with an epilogue), the K7
+             lane-index probe, triangular solves, the nvcc build of
+             ``csrc/``
   linear/    CG and GMRES(m)/FGMRES (single- and lockstep multi-RHS),
              Arnoldi, Identity/Jacobi/Chebyshev, ILU(t)/IC(t), SA- and
              RS-AMG, geometric MG (sparse and structured-grid executors),

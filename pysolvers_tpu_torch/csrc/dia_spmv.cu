@@ -22,21 +22,34 @@
 // Indices are 64-bit: d * ld + i exceeds 2^31 at the largest problems the
 // repository runs (n up to 2.9e8 with 9 offsets).
 //
+// The kernel is a template over what it writes after the accumulation
+// (sweep_epilogue.cuh): the product, the residual f - A x, or a whole
+// weighted-Jacobi sweep x + (omega * dinv) * (f - A x) of a square
+// operator.  A multigrid smoother's sweep is then one launch that moves
+// (D + 4) words a row, where the product and four elementwise passes moved
+// (D + 13).  The accumulation is the same code in every instance.
+//
 // Plain C interface for ctypes: every entry launches on the given stream
 // and returns cudaGetLastError(); the wrapper raises if it is not 0.
 
 #include <cuda_runtime.h>
+
+#include "sweep_epilogue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 8192;  // beyond this the grid-stride loop
 
-template <typename T>
+using epilogue::Epilogue;
+
+template <typename T, Epilogue E>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const T* __restrict__ diags, const int* __restrict__ offsets,
-                const T* __restrict__ x, T* __restrict__ y, long long n_rows,
-                long long n_cols, long long ld, int n_diags) {
+                const T* __restrict__ x, const T* __restrict__ f,
+                const T* __restrict__ dinv, T* __restrict__ y,
+                long long n_rows, long long n_cols, long long ld,
+                int n_diags, T omega) {
   extern __shared__ int s_off[];
   for (int d = threadIdx.x; d < n_diags; d += blockDim.x) s_off[d] = offsets[d];
   __syncthreads();
@@ -48,39 +61,47 @@ dia_spmv_kernel(const T* __restrict__ diags, const int* __restrict__ offsets,
       const long long j = i + s_off[d];
       if (j >= 0 && j < n_cols) acc += diags[(long long)d * ld + i] * x[j];
     }
-    y[i] = acc;
+    y[i] = epilogue::apply<T, E>(acc, i, x, f, dinv, omega);
   }
 }
 
+// epi: the wrapper's epilogue code (0 product, 1 residual, 2 Jacobi sweep);
+// f and dinv are read only by the epilogues that need them
 template <typename T>
-int launch(const void* diags, const void* offsets, const void* x, void* y,
-           long long n_rows, long long n_cols, long long ld,
-           long long n_diags, void* stream) {
+int launch(const void* diags, const void* offsets, const void* x,
+           const void* f, const void* dinv, void* y, long long n_rows,
+           long long n_cols, long long ld, long long n_diags, double omega,
+           int epi, void* stream) {
   long long blocks = (n_rows + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
-  dia_spmv_kernel<T><<<(unsigned)blocks, kThreads,
-                       (size_t)n_diags * sizeof(int),
-                       (cudaStream_t)stream>>>(
-      (const T*)diags, (const int*)offsets, (const T*)x, (T*)y, n_rows,
-      n_cols, ld, (int)n_diags);
-  return (int)cudaGetLastError();
+  return epilogue::dispatch(epi, [&](auto e) {
+    dia_spmv_kernel<T, decltype(e)::value>
+        <<<(unsigned)blocks, kThreads, (size_t)n_diags * sizeof(int),
+           (cudaStream_t)stream>>>(
+            (const T*)diags, (const int*)offsets, (const T*)x, (const T*)f,
+            (const T*)dinv, (T*)y, n_rows, n_cols, ld, (int)n_diags,
+            (T)omega);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 extern "C" int dia_spmv_f32(const void* diags, const void* offsets,
-                            const void* x, void* y, long long n_rows,
-                            long long n_cols, long long ld, long long n_diags,
-                            void* stream) {
-  return launch<float>(diags, offsets, x, y, n_rows, n_cols, ld, n_diags,
-                       stream);
+                            const void* x, const void* f, const void* dinv,
+                            void* y, long long n_rows, long long n_cols,
+                            long long ld, long long n_diags, double omega,
+                            int epi, void* stream) {
+  return launch<float>(diags, offsets, x, f, dinv, y, n_rows, n_cols, ld,
+                       n_diags, omega, epi, stream);
 }
 
 extern "C" int dia_spmv_f64(const void* diags, const void* offsets,
-                            const void* x, void* y, long long n_rows,
-                            long long n_cols, long long ld, long long n_diags,
-                            void* stream) {
-  return launch<double>(diags, offsets, x, y, n_rows, n_cols, ld, n_diags,
-                        stream);
+                            const void* x, const void* f, const void* dinv,
+                            void* y, long long n_rows, long long n_cols,
+                            long long ld, long long n_diags, double omega,
+                            int epi, void* stream) {
+  return launch<double>(diags, offsets, x, f, dinv, y, n_rows, n_cols, ld,
+                        n_diags, omega, epi, stream);
 }

@@ -29,22 +29,32 @@
 //
 // Indices are 64-bit: d * ld_d exceeds 2^31 at n = 1e8.
 //
+// The kernel is a template over what it writes after the accumulation
+// (sweep_epilogue.cuh), as K1 is: the product, the residual f - A x, or a
+// whole weighted-Jacobi sweep x + (omega * dinv) * (f - A x), with f, dinv
+// and x indexed by the flat point r * mc + c.
+//
 // Plain C interface for ctypes: every entry launches on the given stream
 // and returns cudaGetLastError(); the wrapper raises if it is not 0.
 
 #include <cuda_runtime.h>
+
+#include "sweep_epilogue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxRowBlocks = 65535;  // grid.y limit; rows loop beyond
 
-template <typename T>
+using epilogue::Epilogue;
+
+template <typename T, Epilogue E>
 __global__ void __launch_bounds__(kThreads)
 grid_dia_spmv_kernel(const T* __restrict__ diags, const int* __restrict__ pairs,
-                     const T* __restrict__ x, T* __restrict__ y, long long mr,
-                     long long mc, long long ld_d, long long ldc,
-                     int n_diags) {
+                     const T* __restrict__ x, const T* __restrict__ f,
+                     const T* __restrict__ dinv, T* __restrict__ y,
+                     long long mr, long long mc, long long ld_d,
+                     long long ldc, int n_diags, T omega) {
   extern __shared__ int s_pairs[];  // dr_0, dc_0, dr_1, dc_1, ...
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < 2 * n_diags; i += blockDim.x * blockDim.y)
@@ -63,14 +73,17 @@ grid_dia_spmv_kernel(const T* __restrict__ diags, const int* __restrict__ pairs,
       if (rr >= 0 && rr < mr && cc >= 0 && cc < mc)
         acc += drow[(long long)d * ld_d] * x[rr * mc + cc];
     }
-    y[r * mc + c] = acc;
+    y[r * mc + c] = epilogue::apply<T, E>(acc, r * mc + c, x, f, dinv, omega);
   }
 }
 
+// epi: the wrapper's epilogue code (0 product, 1 residual, 2 Jacobi sweep);
+// f and dinv are read only by the epilogues that need them
 template <typename T>
-int launch(const void* diags, const void* pairs, const void* x, void* y,
-           long long mr, long long mc, long long ld_d, long long ldc,
-           long long n_diags, void* stream) {
+int launch(const void* diags, const void* pairs, const void* x,
+           const void* f, const void* dinv, void* y, long long mr,
+           long long mc, long long ld_d, long long ldc, long long n_diags,
+           double omega, int epi, void* stream) {
   // block width: the grid row rounded up to a power of two, 32..256;
   // the rest of the 256 threads take further grid rows
   int bx = 32;
@@ -81,27 +94,35 @@ int launch(const void* diags, const void* pairs, const void* x, void* y,
   if (gy > kMaxRowBlocks) gy = kMaxRowBlocks;
   if (gx < 1) gx = 1;
   if (gy < 1) gy = 1;
-  grid_dia_spmv_kernel<T><<<dim3((unsigned)gx, (unsigned)gy), dim3(bx, by),
-                            (size_t)(2 * n_diags) * sizeof(int),
-                            (cudaStream_t)stream>>>(
-      (const T*)diags, (const int*)pairs, (const T*)x, (T*)y, mr, mc, ld_d,
-      ldc, (int)n_diags);
-  return (int)cudaGetLastError();
+  return epilogue::dispatch(epi, [&](auto e) {
+    grid_dia_spmv_kernel<T, decltype(e)::value>
+        <<<dim3((unsigned)gx, (unsigned)gy), dim3(bx, by),
+           (size_t)(2 * n_diags) * sizeof(int), (cudaStream_t)stream>>>(
+            (const T*)diags, (const int*)pairs, (const T*)x, (const T*)f,
+            (const T*)dinv, (T*)y, mr, mc, ld_d, ldc, (int)n_diags,
+            (T)omega);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 extern "C" int grid_dia_spmv_f32(const void* diags, const void* pairs,
-                                 const void* x, void* y, long long mr,
+                                 const void* x, const void* f,
+                                 const void* dinv, void* y, long long mr,
                                  long long mc, long long ld_d, long long ldc,
-                                 long long n_diags, void* stream) {
-  return launch<float>(diags, pairs, x, y, mr, mc, ld_d, ldc, n_diags, stream);
+                                 long long n_diags, double omega, int epi,
+                                 void* stream) {
+  return launch<float>(diags, pairs, x, f, dinv, y, mr, mc, ld_d, ldc,
+                       n_diags, omega, epi, stream);
 }
 
 extern "C" int grid_dia_spmv_f64(const void* diags, const void* pairs,
-                                 const void* x, void* y, long long mr,
+                                 const void* x, const void* f,
+                                 const void* dinv, void* y, long long mr,
                                  long long mc, long long ld_d, long long ldc,
-                                 long long n_diags, void* stream) {
-  return launch<double>(diags, pairs, x, y, mr, mc, ld_d, ldc, n_diags,
-                        stream);
+                                 long long n_diags, double omega, int epi,
+                                 void* stream) {
+  return launch<double>(diags, pairs, x, f, dinv, y, mr, mc, ld_d, ldc,
+                        n_diags, omega, epi, stream);
 }

@@ -38,7 +38,10 @@ and transfer of at least 2000 rows or columns, and on CUDA the device
 build's fine level.  Both setups bring a level into that lane by one
 rule, on every device (``sparse/bws.py::lower_to_csr``): its host CSR is
 lowered straight to K2's layout, with no pack; only the caller's own
-operand, reused as the fine level, is a pack.  The preconditioner's apply
+operand, reused as the fine level, is a pack.  On CUDA a square DIA
+level's Jacobi sweep and the residual before its restriction are each one
+K1 launch with an epilogue (``ops/sweep.py``), bit-equal to the product
+followed by the elementwise passes.  The preconditioner's apply
 replays those calls as one CUDA graph where it can
 (``AMGPreconditionerType``).  What the JAX
 package chose by ``jax.default_backend()`` is chosen here by the
@@ -82,6 +85,7 @@ import torch
 from ..core import SolverConfig, SolveStatus, StopReason, make_status
 from ..ops import matvec
 from ..ops.cuda_graph import GraphedApply
+from ..ops.sweep import jacobi_sweep, residual
 from ..ops.trisolve import build_trisolve_plan, trisolve
 from ..sparse.bws import BwsMatrix, lower_to_csr
 from ..sparse.device import numpy_dtype, resolve_device, same_device
@@ -640,11 +644,13 @@ def _smooth(level: DeviceLevel, smoother: str, x, f, sweeps: int):
             x = x + p
             rho = rho_new
         return x
+    if smoother == "jacobi":
+        for _ in range(sweeps):
+            x = jacobi_sweep(level.A_dev, x, f, level.dinv, 2.0 / 3.0)
+        return x
     for _ in range(sweeps):
         r = f - matvec(level.A_dev, x)
-        if smoother == "jacobi":
-            x = x + (2.0 / 3.0) * level.dinv.to(x.dtype) * r
-        elif smoother == "gs":
+        if smoother == "gs":
             x = x + trisolve(level.gs_plan, r)
         elif smoother == "sgs":
             lo, up = level.gs_plan
@@ -681,7 +687,7 @@ def v_cycle(h: DeviceHierarchy, f: torch.Tensor,
         if k == 0:
             return h.A0_inv.to(f_k.dtype) @ f_k
         x_k = _smooth(lev, h.smoother, x_k, f_k, h.nu_pre)
-        r = f_k - matvec(lev.A_dev, x_k)
+        r = residual(lev.A_dev, f_k, x_k)
         f_c = matvec(lev.R_dev, r)
         x_c = visit(k - 1, f_c, torch.zeros_like(f_c))
         x_k = x_k + matvec(lev.P_dev, x_c)

@@ -5,7 +5,9 @@ Dirichlet grid the transfers are structured: prolongation is interleave +
 neighbour averaging, restriction is full weighting — strided slicing and
 adds, no sparse transfer operators.  Level operators are stencils, stored
 as ``DiaMatrix`` (kernel K1 on CUDA) or, on 2-D grids of m >=
-``GRID_KERNEL_MIN_M``, as ``GridDiaMatrix`` (kernel K6).
+``GRID_KERNEL_MIN_M``, as ``GridDiaMatrix`` (kernel K6).  On CUDA each
+level's Jacobi sweep and residual is one launch of its kernel with an
+epilogue (``ops/sweep.py``).
 
 Exactness contract: ``grid_prolong`` / ``grid_restrict`` compute exactly
 the same linear maps as ``gmg.interp_1d/interp_2d`` and the row-normalized
@@ -52,9 +54,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import matvec
 from ..ops.grid_spmv import GridDiaMatrix
 from ..ops.spmv import dia_spmm_rows
+from ..ops.sweep import residual
 from ..sparse.device import DiaMatrix, numpy_dtype, resolve_device
 from ..sparse.host import HostCSR
 from ..utils.timing import Timer, tracing
@@ -595,7 +597,7 @@ def v_cycle_grid(h: GridHierarchy, f: torch.Tensor,
             return h.A0_inv.to(f_k.dtype) @ f_k
         lev = h.levels[k]
         x_k = _smooth(lev, h.smoother, x_k, f_k, h.nu_pre)
-        r = f_k - matvec(lev.A_dev, x_k)
+        r = residual(lev.A_dev, f_k, x_k)
         f_c = grid_restrict(r, h.ndim, h.ms[k], h.ms[k - 1])
         del r
         x_c = visit(k - 1, f_c, torch.zeros_like(f_c))

@@ -5,7 +5,8 @@ Each source compiles on its own into ``pysolvers_tpu_torch/_build/lib<name>.so``
 (a plain C interface; no PyTorch headers, so a build takes seconds).  The
 compile goes to a temporary name and is renamed into place atomically, so
 concurrent builds never leave a half-written library, and a source newer
-than its library triggers a rebuild.  The compiler's output (``-Xptxas -v``:
+than its library, or a header of ``csrc/`` newer than it, triggers a
+rebuild.  The compiler's output (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside the library as
 ``lib<name>.log``.  Only sources in this package are built; a missing nvcc
 or a failed build raises.
@@ -27,6 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 
+# What K1 and K6 write after their product (``csrc/sweep_epilogue.cuh``):
+# y = A x, r = f - A x, or the Jacobi sweep x + (omega * dinv) * (f - A x).
+PRODUCT, RESIDUAL, JACOBI = 0, 1, 2
+
 # Launches per (kernel id, dtype name) since the last reset, e.g.
 # ("K1", "float32"): every kernel wrapper adds one here where it adds one to
 # its own launch count, so a run can tell a path's f32 launches from its f64
@@ -36,6 +41,11 @@ launches_by_dtype: collections.Counter = collections.Counter()
 
 def count_launch(kernel: str, dtype) -> None:
     launches_by_dtype[kernel, str(dtype).split(".")[-1]] += 1
+
+
+def data_ptr(t):
+    """A tensor's device address for a ctypes call; None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _nvcc() -> str:
@@ -54,7 +64,10 @@ def build(name: str) -> str:
     the library's path."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    inputs = [src] + [os.path.join(CSRC_DIR, h) for h in os.listdir(CSRC_DIR)
+                      if h.endswith(".cuh")]
+    if (os.path.exists(so) and os.path.getmtime(so)
+            >= max(os.path.getmtime(p) for p in inputs)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.build.{os.getpid()}"

@@ -20,7 +20,8 @@ entries, and ``GridDiaMatrix.from_dia`` verifies it before converting.
   the hand-written CUDA replacement of the TPU kernel ``grid_dia_spmv``
   (``_gdia_kernel``).  f32 and f64.  A CPU tensor goes to the plain twin
   ``grid_dia_spmv_torch``; a CUDA tensor launches K6 or raises — it never
-  falls back.
+  falls back.  ``k6_launch`` is that one launch; ``ops/sweep.py`` calls
+  it with an epilogue, as it calls K1's.
 * ``grid_dia_spmv_torch`` — the plain version: x as an (mr, mc) grid,
   zero-padded by (dr_max, dc_max), and D shifted slices times the table.
 
@@ -216,17 +217,45 @@ def _k6_entry(dtype):
         lib = _cuda_build.load("grid_dia_spmv")
         fn = (lib.grid_dia_spmv_f32 if dtype == torch.float32
               else lib.grid_dia_spmv_f64)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 5
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5
+                       + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _ENTRIES[dtype] = fn
     return fn
 
 
+def k6_launch(A: GridDiaMatrix, x: torch.Tensor, f=None, dinv=None,
+              omega: float = 0.0,
+              epilogue: int = _cuda_build.PRODUCT) -> torch.Tensor:
+    """One launch of K6 on CUDA tensors the caller has checked: A @ x
+    with ``epilogue`` (``_cuda_build.PRODUCT``, ``RESIDUAL`` f − A x, or
+    ``JACOBI`` x + (omega·dinv)·(f − A x)).  Counted as every K6 launch
+    is."""
+    global grid_dia_spmv_launches
+    if A.diags.stride(2) != 1:
+        raise ValueError("K6 takes a table with contiguous rows")
+    y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
+    if A.n_rows == 0:
+        return y
+    mr, mc = A.dims
+    fn = _k6_entry(A.dtype)
+    with torch.cuda.device(x.device):
+        rc = fn(A.diags.data_ptr(), A.pairs_dev.data_ptr(), x.data_ptr(),
+                _cuda_build.data_ptr(f), _cuda_build.data_ptr(dinv),
+                y.data_ptr(), mr, mc, A.diags.stride(0), A.diags.stride(1),
+                len(A.pairs), omega, epilogue,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K6 (grid_dia_spmv) launch failed: CUDA error "
+                           f"{rc}")
+    grid_dia_spmv_launches += 1
+    _cuda_build.count_launch("K6", A.dtype)
+    return y
+
+
 def grid_dia_spmv(A: GridDiaMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for flat x of length n = mr·mc: kernel K6 on CUDA, its
     twin on the CPU."""
-    global grid_dia_spmv_launches
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"grid SpMV takes float32 or float64, got {A.dtype}")
     if x.dtype != A.dtype:
@@ -240,21 +269,6 @@ def grid_dia_spmv(A: GridDiaMatrix, x: torch.Tensor) -> torch.Tensor:
         return grid_dia_spmv_torch(A, x)
     if x.device.type != "cuda":
         raise ValueError(f"grid SpMV runs on CPU or CUDA, not {x.device}")
-    if not x.is_contiguous() or A.diags.stride(2) != 1:
-        raise ValueError("K6 takes a contiguous x and a table with "
-                         "contiguous rows")
-    y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
-    if A.n_rows == 0:
-        return y
-    mr, mc = A.dims
-    fn = _k6_entry(A.dtype)
-    with torch.cuda.device(x.device):
-        rc = fn(A.diags.data_ptr(), A.pairs_dev.data_ptr(), x.data_ptr(),
-                y.data_ptr(), mr, mc, A.diags.stride(0), A.diags.stride(1),
-                len(A.pairs), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K6 (grid_dia_spmv) launch failed: CUDA error "
-                           f"{rc}")
-    grid_dia_spmv_launches += 1
-    _cuda_build.count_launch("K6", A.dtype)
-    return y
+    if not x.is_contiguous():
+        raise ValueError("K6 takes a contiguous x")
+    return k6_launch(A, x)

@@ -7,7 +7,9 @@ Port of ``pysolvers_tpu/ops/spmv.py``:
   It serves every ``DiaMatrix`` on a CUDA device, in f32 and f64 alike
   (the JAX package sends f64 to ``dia_spmv_xla`` only because Mosaic has
   no f64).  A CPU tensor goes to the plain twin ``dia_spmv_torch``; a CUDA
-  tensor launches K1 or raises — it never falls back.
+  tensor launches K1 or raises — it never falls back.  ``k1_launch`` is
+  that one launch; ``ops/sweep.py`` calls it with an epilogue, the
+  residual f − A x or a whole Jacobi sweep, for a multigrid level.
 * ``dia_spmv_torch`` — plain shift-and-FMA (the counterpart of
   ``dia_spmv_xla``): K1's reference in the tests and on the card.
 * ``ell_spmv_torch`` — plain gather SpMV for ``EllMatrix`` (the JAX package
@@ -140,11 +142,39 @@ def _k1_entry(dtype):
     if fn is None:
         lib = _cuda_build.load("dia_spmv")
         fn = lib.dia_spmv_f32 if dtype == torch.float32 else lib.dia_spmv_f64
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4
+                       + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _K1_ENTRIES[dtype] = fn
     return fn
+
+
+def k1_launch(A: DiaMatrix, x: torch.Tensor, f=None, dinv=None,
+              omega: float = 0.0, epilogue: int = _cuda_build.PRODUCT, *,
+              _tangent: bool = False) -> torch.Tensor:
+    """One launch of K1 on CUDA tensors the caller has checked: A @ x
+    with ``epilogue`` (``_cuda_build.PRODUCT``, ``RESIDUAL`` f − A x, or
+    ``JACOBI`` x + (omega·dinv)·(f − A x), square A).  Counted as every K1
+    launch is."""
+    global dia_spmv_launches, dia_spmv_jvp_launches
+    if not A.diags.is_contiguous():
+        raise ValueError("K1 takes contiguous diagonals")
+    y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
+    if A.n_rows == 0:
+        return y
+    fn = _k1_entry(A.dtype)
+    with torch.cuda.device(x.device):
+        rc = fn(A.diags.data_ptr(), A.offsets_dev.data_ptr(), x.data_ptr(),
+                _cuda_build.data_ptr(f), _cuda_build.data_ptr(dinv),
+                y.data_ptr(), A.n_rows, A.n_cols, A.ld, len(A.offsets),
+                omega, epilogue, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 (dia_spmv) launch failed: CUDA error {rc}")
+    dia_spmv_launches += 1
+    if _tangent:
+        dia_spmv_jvp_launches += 1
+    _cuda_build.count_launch("K1", A.dtype)
+    return y
 
 
 class _DiaSpmvFn(torch.autograd.Function):
@@ -172,7 +202,6 @@ def dia_spmv(A: DiaMatrix, x: torch.Tensor, *,
     """y = A @ x for a DiaMatrix: kernel K1 on CUDA, its twin on the CPU;
     a tensor wrapped by a ``torch.func`` transform goes through
     ``_DiaSpmvFn``."""
-    global dia_spmv_launches, dia_spmv_jvp_launches
     if _functorch_wrapped(x):
         return _DiaSpmvFn.apply(A, x, _tangent)
     if A.dtype not in (torch.float32, torch.float64):
@@ -188,23 +217,9 @@ def dia_spmv(A: DiaMatrix, x: torch.Tensor, *,
         return dia_spmv_torch(A, x)
     if x.device.type != "cuda":
         raise ValueError(f"DIA SpMV runs on CPU or CUDA, not {x.device}")
-    if not (x.is_contiguous() and A.diags.is_contiguous()):
-        raise ValueError("K1 takes contiguous x and diagonals")
-    y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
-    if A.n_rows == 0:
-        return y
-    fn = _k1_entry(A.dtype)
-    with torch.cuda.device(x.device):
-        rc = fn(A.diags.data_ptr(), A.offsets_dev.data_ptr(), x.data_ptr(),
-                y.data_ptr(), A.n_rows, A.n_cols, A.ld, len(A.offsets),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 (dia_spmv) launch failed: CUDA error {rc}")
-    dia_spmv_launches += 1
-    if _tangent:
-        dia_spmv_jvp_launches += 1
-    _cuda_build.count_launch("K1", A.dtype)
-    return y
+    if not x.is_contiguous():
+        raise ValueError("K1 takes a contiguous x")
+    return k1_launch(A, x, _tangent=_tangent)
 
 
 def bdia_spmm_torch(A: BdiaMatrix, V: torch.Tensor) -> torch.Tensor:
